@@ -16,10 +16,11 @@ Phases, each fatal on failure (exit code != 0, no result line):
      and with both stages precise/fast; fused_nbfm_q1 (K4) and
      fused_nbfm_q1_seq (K5) precise/fast, their entering and final offsets
      within 1e-3, K5 also against K4; dma_floor (K2) exactly;
-   - fused_pfb (K6) for C = 4, 8, 12, 16, 32, 64 on two streamed 0.25 s
-     blocks of an on-grid FM bank capture and of noise (C = 4 also on one
-     10-block bank4 chunk): angle-wrapped error < 0.01 rad, > 80 dB, the
-     carried history bit-equal;
+   - fused_pfb (K6) for every C of tests/test_torch_cuda.py (2 to 256,
+     radix and direct FFT factors, the primes 17 and 251 on the direct
+     DFT) on two streamed 0.25 s blocks of an on-grid FM bank capture and
+     of noise (C = 4 also on one 10-block bank4 chunk): angle-wrapped error
+     < 0.01 rad, > 80 dB, the carried history bit-equal;
 4. the main paths through their entry point, each in its own process, so
    its launch counts start at 0 (PHASES line):
    - ``python -m demodulator_tpu_torch -i cap.iq -o out.raw -S 96000 -l
@@ -46,9 +47,10 @@ Phases, each fatal on failure (exit code != 0, no result line):
    one call for a call slower than 5 ms) beside the
    plain versions, and each kernel's device time from torch.profiler,
    with GB/s against dma_floor's and the least time the card could take
-   (bound): NBFM kernels at 16 and 256 blocks (K5 beside K4); fused_pfb at
-   C = 64 on one bank64 block and at C = 4 on one bank4 chunk; the bank's
-   audio FIR.
+   (bound): NBFM kernels at 16 and 256 blocks (K5 beside K4; K4 held to
+   one kernel launch per call); fused_pfb at
+   C = 64 on one bank64 block and at C = 4 on one bank4 chunk, with its FFT
+   plan; the bank's audio FIR.
 
 The line before the last is a JSON object with the kernels' launches,
 errors, times and bounds; the last line is ``{"ok": true, "device":
@@ -79,7 +81,8 @@ from demodulator_tpu_torch.ops.cuda.fused_nbfm import (
     dma_floor, dma_floor_ref, fused_nbfm, fused_nbfm_cplx,
     fused_nbfm_cplx_ref, fused_nbfm_q1, fused_nbfm_q1_ref, fused_nbfm_q1_seq,
     fused_nbfm_q1_seq_ref, fused_nbfm_ref)
-from demodulator_tpu_torch.ops.cuda.fused_pfb import (fused_pfb_demod,
+from demodulator_tpu_torch.ops.cuda.fused_pfb import (fft_plan,
+                                                      fused_pfb_demod,
                                                       fused_pfb_demod_ref)
 from demodulator_tpu_torch.oracle.pipeline import OraclePipeline
 
@@ -111,6 +114,9 @@ CR = 192000.0            # channel rate of both bank runs
 BAR_BANK_DB = 80.0       # the PFB front (tests/test_fused_pfb.py:55)
 BAR_ANGLE = 0.01         # rad, angle-wrapped (tests/test_fused_pfb.py:52)
 BAR_BANK_ATOL = 1e-4     # tests/test_fused_pfb.py:107
+# K6's channel counts in phase 3: tests/test_torch_cuda.py
+# test_pfb_kernel_matches_ref
+PFB_CHANNELS = (2, 3, 4, 5, 8, 12, 16, 17, 32, 48, 64, 128, 251, 256)
 # bank CLI runs of phase 4: name -> (channels, capture bytes, carrier
 # channels (indices into the --bank list), blocks per call)
 BANK_RUNS = {"bank64": (64, 256 << 20, (4, 12, 20, 28, 35, 43, 51, 59), 1),
@@ -342,8 +348,7 @@ def phase_kernels_pfb(dev) -> float:
     the max angle-wrapped error on the bank capture."""
     worst = 0.0
     rng = np.random.default_rng(11)
-    for C, blocks in ((4, 1), (4, 10), (8, 1), (12, 1), (16, 1), (32, 1),
-                      (64, 1)):
+    for C, blocks in [(C, 1) for C in PFB_CHANNELS] + [(4, 10)]:
         pfb = PolyphaseChannelizer(C)
         fs = C * CR
         n = int(0.25 * fs) * blocks
@@ -364,7 +369,8 @@ def phase_kernels_pfb(dev) -> float:
                       f"fused_pfb C={C} {data}: history differs")
             err = max(r[0] for r in res)
             snr = min(r[1] for r in res)
-            say(f"fused_pfb C={C} ({blocks} block(s) of 0.25 s, {n} samples) "
+            say(f"fused_pfb C={C} (FFT {'x'.join(map(str, fft_plan(C)))}; "
+                f"{blocks} block(s) of 0.25 s, {n} samples) "
                 f"{data}: angle-wrapped max|err| {err:.3g} rad, {snr:.1f} dB,"
                 f" history bit-equal")
             check(err < BAR_ANGLE and snr > BAR_BANK_DB,
@@ -643,11 +649,13 @@ def time_ms(fn, reps: int = 20, inner: int = 10) -> float:
     return float(np.median(times))
 
 
-def device_us(fn, kernel: str, calls: int = 20) -> float | None:
-    """Device time in µs per call of ``fn`` of the CUDA kernels whose names
-    contain ``kernel`` (K4 launches three), from torch.profiler: the
-    kernels alone, without the host's launch overhead.  None when the
-    profiler records no such kernel."""
+def device_us(fn, kernel: str, calls: int = 20) -> tuple:
+    """(device time in µs per call of ``fn`` of the CUDA kernels whose
+    names contain ``kernel``, their launches per call), from
+    torch.profiler: the kernels alone, without the host's launch overhead.
+    A kernel's time per call is its mean per recorded launch times its
+    launches per call, rounded (the profiler can drop a record).  (None, 0)
+    when the profiler records no such kernel."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -657,13 +665,15 @@ def device_us(fn, kernel: str, calls: int = 20) -> float | None:
         torch.cuda.synchronize()
     evts = [e for e in prof.key_averages() if kernel in e.key]
     if not evts:
-        return None
+        return None, 0
     if len(evts) > 1:
         names = [re.search(r"\w+_kernel", e.key).group(0) for e in evts]
         say("  device time per call by kernel: " + "; ".join(
             f"{name} {e.device_time_total / calls:.1f} us"
             for name, e in zip(names, evts)))
-    return sum(e.device_time_total for e in evts) / calls
+    return (sum(e.device_time_total / e.count * max(1, round(e.count / calls))
+                for e in evts),
+            sum(e.count for e in evts) / calls)
 
 
 # Operations counted for the bounds (float32, outside the tensor cores),
@@ -699,15 +709,20 @@ def run_cases(out: dict, tag, cases: dict, gbytes: float, label: str) -> None:
         line = (f"{label} {name:34s} {ms * 1e3:9.1f} us "
                 f"{gbytes / (ms / 1e3):8.1f} GB/s")
         if kernel is not None:
-            us = device_us(fn, kernel)
+            us, per_call = device_us(fn, kernel)
             b_ms, b_by = bound(nbytes, ops)
             out[(name, tag, "device_us")] = us
             out[(name, tag, "bound")] = (b_ms, b_by)
             line += ("; device time not measured (no profiler record)"
                      if us is None else f"; device {us:8.1f} us "
                      f"{gbytes / (us / 1e6):8.1f} GB/s, "
-                     f"{us / (b_ms * 1e3):.1f}x its bound")
+                     f"{us / (b_ms * 1e3):.1f}x its bound, "
+                     f"{per_call:g} launch(es) per call")
             line += f" ({b_ms * 1e3:.2f} us, {b_by})"
+            # K4 is one kernel: more than one launch per call is a fault
+            # (fewer would be a record the profiler dropped)
+            check(not name.startswith("fused_nbfm_q1 ") or per_call <= 1,
+                  f"{name}: {per_call:g} kernel launches per call")
         say(line)
 
 
@@ -800,6 +815,8 @@ def phase_timings(dev, smi: str) -> dict:
             device=dev)
         C, P = pipe.pfb.C, pipe.pfb.P
         n = pipe.block_complex * per_call
+        say(f"{name}: K6's FFT plan C = {C} = "
+            f"{' x '.join(map(str, fft_plan(C)))}")
         raw = bank_iq(nch * CR, bank_offsets(nch), carriers, 0, n, 7,
                       0.8 / len(carriers), dev)
         hist = pipe.pfb.init_hist(device=dev)

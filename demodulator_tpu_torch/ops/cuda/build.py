@@ -46,19 +46,22 @@ _SIGNATURES = {
     # [2], stage constants [2][2], nstages, precise, normalize, stream
     "fused_nbfm_cplx_launch": (_P, _P, _I64, _I64, _FP, _I, _FP,
                                ctypes.POINTER(_I), _FP, _I, _I, _I, _P),
-    # in, out, off_in, off_entering, off_final, scratch, tiles, blocks,
-    # words, taps, ntaps, esr, decay (float64), precise, stream
-    "fused_nbfm_q1_launch": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _FP,
-                             _I, ctypes.c_float, ctypes.c_double, _I, _P),
+    # in, out, off_in, off_entering, off_final, sync (ticket and published
+    # maps), power table, tiles, blocks, words, tile, taps, ntaps, esr, decay
+    # (float64), a^words, precise, stream
+    "fused_nbfm_q1_launch": (_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64,
+                             _I, _FP, _I, ctypes.c_float, ctypes.c_double,
+                             ctypes.c_float, _I, _P),
     # in, out, off_in, off_entering, off_final, sync flags, tile summaries,
-    # tiles, blocks, words, taps, ntaps, esr, decay (float64), a^words,
-    # precise, stream
-    "fused_nbfm_q1_seq_launch": (_P, _P, _P, _P, _P, _P, _P, _I64, _I64,
-                                 _I64, _FP, _I, ctypes.c_float,
+    # power table, tiles, blocks, words, tile, taps, ntaps, esr, decay
+    # (float64), a^words, precise, stream
+    "fused_nbfm_q1_seq_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64,
+                                 _I64, _I, _FP, _I, ctypes.c_float,
                                  ctypes.c_double, ctypes.c_float, _I, _P),
-    # in, hist, h, twiddle cos, sin, d, new_hist, samples, C, P, precise,
-    # stream
-    "fused_pfb_launch": (_P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _P),
+    # in, hist, h, twiddle table, d, new_hist, samples, C, C1, C2, P,
+    # precise, stream
+    "fused_pfb_launch": (_P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _I,
+                         _P),
 }
 
 

@@ -25,6 +25,7 @@ kernel's arithmetic in the kernel's order.  Nothing else falls back.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -34,15 +35,20 @@ from ..conditioning import condition
 from . import build
 from ..demod import _ATAN_COEFFS, _ATAN_COEFFS_FAST, atan2_poly
 
-__all__ = ["MAX_TAPS", "MAX_CPLX_TAPS", "Q1_TILE", "fused_nbfm",
-           "fused_nbfm_ref", "dma_floor", "dma_floor_ref", "fused_nbfm_cplx",
-           "fused_nbfm_cplx_ref", "fused_nbfm_q1", "fused_nbfm_q1_ref",
-           "fused_nbfm_q1_seq", "fused_nbfm_q1_seq_ref"]
+__all__ = ["MAX_TAPS", "MAX_CPLX_TAPS", "Q1_TILE", "Q1_MAX_TILE",
+           "fused_nbfm", "fused_nbfm_ref", "dma_floor", "dma_floor_ref",
+           "fused_nbfm_cplx", "fused_nbfm_cplx_ref", "fused_nbfm_q1",
+           "fused_nbfm_q1_ref", "fused_nbfm_q1_seq", "fused_nbfm_q1_seq_ref",
+           "q1_pow_table", "q1_tiles"]
 
 MAX_TAPS = 32  # csrc/nbfm_device.cuh kMaxTaps
 MAX_CPLX_TAPS = 32  # csrc/nbfm_device.cuh kMaxCplxTaps
 MAX_STAGES = 2  # complex stages in one K3 launch
-Q1_TILE = 512  # csrc/fused_nbfm_q1.cu kTile: step pairs per K4 tile
+# step pairs per K4/K5 tile (the block's last tile takes the rest), chosen
+# by measurement (ops/cuda/sections.py, PERF.md); csrc/fused_nbfm_q1.cu
+# takes 1..Q1_MAX_TILE
+Q1_TILE = 2048
+Q1_MAX_TILE = 4096  # csrc/fused_nbfm_q1.cu kMaxTile
 MAX_BLOCKS = 65535  # the kernels' grid.y
 
 
@@ -286,6 +292,38 @@ def fused_nbfm_q1_ref(raw: torch.Tensor, off_in: torch.Tensor, taps,
     return audio, off_before, A * off_in + b
 
 
+def q1_tiles(B: int, n: int, tile: int = Q1_TILE) -> int:
+    """K4's and K5's tiles: ceil(n/8 / tile) per block of n bytes."""
+    return B * -(-(n // 8) // tile)
+
+
+def q1_pow_table(esr: float, tile: int = Q1_TILE) -> np.ndarray:
+    """float32(q^m) for m < tile + MAX_TAPS, q = decay², each power taken
+    in float64 and rounded once: every power K4's and K5's scans and
+    look-back meet (csrc/fused_nbfm_q1.cu)."""
+    d = cond_ops.decay_of(esr)
+    q = d * d
+    return np.array([q ** m for m in range(tile + MAX_TAPS)],
+                    np.float64).astype(np.float32)
+
+
+@functools.cache
+def _pow_table(esr: float, tile: int, device: torch.device) -> torch.Tensor:
+    """:func:`q1_pow_table` on ``device``, once per (esr, tile, device)."""
+    return torch.from_numpy(q1_pow_table(esr, tile)).to(device)
+
+
+def _q1_launch_args(raw: torch.Tensor, off_in: torch.Tensor, esr: float,
+                    tile: int) -> tuple:
+    """(off_in, pow_table, tiles) of a K4 or K5 launch with tiles of
+    ``tile`` (1..Q1_MAX_TILE) step pairs."""
+    _check_aligned(raw)
+    B, n = raw.shape
+    return (off_in.contiguous(),
+            _pow_table(float(np.float32(esr)), tile, raw.device),
+            q1_tiles(B, n, tile))
+
+
 def fused_nbfm_q1(raw: torch.Tensor, off_in: torch.Tensor, taps,
                   esr: float, precise: bool = True):
     """uint8 [B, n] raw bytes of consecutive blocks, off_in float32 [2]
@@ -297,24 +335,24 @@ def fused_nbfm_q1(raw: torch.Tensor, off_in: torch.Tensor, taps,
     t = _taps32(taps)
     if raw.device.type == "cpu":
         return fused_nbfm_q1_ref(raw, off_in, taps, esr, precise)
-    _check_device(raw)
-    if not off_in.is_contiguous():
-        off_in = off_in.contiguous()
+    off_in, table, tiles = _q1_launch_args(raw, off_in, esr, Q1_TILE)
     lib = build.load()
     dev = raw.device
-    tiles = B * max(1, (n // 8) // Q1_TILE)
     audio = torch.empty((B, n // 4), dtype=torch.float32, device=dev)
     off_entering = torch.empty((B, 2), dtype=torch.float32, device=dev)
     off_final = torch.empty((2,), dtype=torch.float32, device=dev)
-    scratch = torch.empty((2, tiles, 2), dtype=torch.float32, device=dev)
+    # the ticket counter and the published maps of each tile and block and
+    # each block's prefix: every bit set (unpublished) before every launch
+    sync = torch.full((2 + 2 * (tiles + 2 * B),), -1, dtype=torch.int32,
+                      device=dev)
     taps_c = (ctypes.c_float * len(t))(*t.tolist())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.fused_nbfm_q1_launch(
             raw.data_ptr(), audio.data_ptr(), off_in.data_ptr(),
-            off_entering.data_ptr(), off_final.data_ptr(),
-            scratch.data_ptr(), tiles, B, n // 4, taps_c, len(t),
-            float(np.float32(esr)), cond_ops.decay_of(esr),
+            off_entering.data_ptr(), off_final.data_ptr(), sync.data_ptr(),
+            table.data_ptr(), tiles, B, n // 4, Q1_TILE, taps_c, len(t),
+            float(np.float32(esr)), cond_ops.decay_of(esr), _a_words(esr, n),
             int(bool(precise)), stream)
     _raise_on(rc, "fused_nbfm_q1")
     fused_nbfm_q1.launches += 1
@@ -360,11 +398,9 @@ def fused_nbfm_q1_seq(raw: torch.Tensor, off_in: torch.Tensor, taps,
     t = _taps32(taps)
     if raw.device.type == "cpu":
         return fused_nbfm_q1_seq_ref(raw, off_in, taps, esr, precise)
-    _check_aligned(raw)
-    off_in = off_in.contiguous()
+    off_in, table, tiles = _q1_launch_args(raw, off_in, esr, Q1_TILE)
     lib = build.load()
     dev = raw.device
-    tiles = B * max(1, (n // 8) // Q1_TILE)
     audio = torch.empty((B, n // 4), dtype=torch.float32, device=dev)
     off_entering = torch.empty((B, 2), dtype=torch.float32, device=dev)
     off_final = torch.empty((2,), dtype=torch.float32, device=dev)
@@ -377,9 +413,9 @@ def fused_nbfm_q1_seq(raw: torch.Tensor, off_in: torch.Tensor, taps,
         rc = lib.fused_nbfm_q1_seq_launch(
             raw.data_ptr(), audio.data_ptr(), off_in.data_ptr(),
             off_entering.data_ptr(), off_final.data_ptr(), sync.data_ptr(),
-            tile_b.data_ptr(), tiles, B, n // 4, taps_c, len(t),
-            float(np.float32(esr)), cond_ops.decay_of(esr), _a_words(esr, n),
-            int(bool(precise)), stream)
+            tile_b.data_ptr(), table.data_ptr(), tiles, B, n // 4, Q1_TILE,
+            taps_c, len(t), float(np.float32(esr)), cond_ops.decay_of(esr),
+            _a_words(esr, n), int(bool(precise)), stream)
     _raise_on(rc, "fused_nbfm_q1_seq")
     fused_nbfm_q1_seq.launches += 1
     return audio, off_entering, off_final

@@ -7,7 +7,9 @@ fast discriminator.  The kernel (``csrc/fused_pfb.cu``) takes the raw bytes
 (one little-endian 16-bit word per complex sample, low byte I) and returns
 ``d [T/(2C), C]``, row m2 column k channel k's output for frame pair
 (2·m2, 2·m2 + 1): no 64-column lane packing.  Any C up to
-:data:`MAX_CHANNELS` with ``T % 2C == 0`` runs.
+:data:`MAX_CHANNELS` with ``T % 2C == 0`` runs.  Its DFT is a float64 FFT
+in two factors C = C1·C2 (:func:`fft_plan`), every factor read from one
+float64 table (:func:`fft_table`).
 
 Given CUDA tensors the wrapper launches the kernel, adds one to
 ``fused_pfb_demod.launches`` and returns; a C or P beyond the kernel's
@@ -17,6 +19,7 @@ returns :func:`fused_pfb_demod_ref`.
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
@@ -27,11 +30,12 @@ from ..conditioning import split_iq
 from ..demod import _ATAN_COEFFS, _ATAN_COEFFS_FAST, atan2_poly
 from .fused_nbfm import _raise_on
 
-__all__ = ["MAX_CHANNELS", "MAX_PHASES", "fused_pfb_demod",
-           "fused_pfb_demod_ref"]
+__all__ = ["MAX_CHANNELS", "MAX_PHASES", "MAX_FACTOR", "fft_plan",
+           "fft_table", "fused_pfb_demod", "fused_pfb_demod_ref"]
 
 MAX_CHANNELS = 256  # csrc/fused_pfb.cu kMaxChannels
 MAX_PHASES = 32     # csrc/fused_pfb.cu kMaxPhases
+MAX_FACTOR = 16     # the largest FFT factor the kernel plans for
 
 
 def _check(raw: torch.Tensor, hist: torch.Tensor, h, C: int):
@@ -74,11 +78,35 @@ def fused_pfb_demod_ref(raw: torch.Tensor, hist: torch.Tensor, h, C: int,
     return torch.where(torch.isnan(s), torch.zeros_like(s), s), new_hist
 
 
+def fft_plan(C: int) -> tuple[int, int]:
+    """The kernel's factorisation C = C1·C2: both factors at most
+    :data:`MAX_FACTOR` and as close as possible, C1 <= C2 (8·8 at 64, 3·4
+    at 12, 1·p for a prime p <= 16); (C, 1), the direct DFT, where no such
+    split exists (a prime above 16, or 200)."""
+    for c1 in range(math.isqrt(C), 0, -1):
+        if C % c1 == 0 and C // c1 <= MAX_FACTOR:
+            return c1, C // c1
+    return C, 1
+
+
+def fft_table(C: int) -> np.ndarray:
+    """The kernel's float64 twiddle table [C + C1·RS, 2] (cos, sin): e^{+j2π
+    i/C} for i < C (stage factors w_C1^m = entry m·C2, w_C2^m = entry m·C1),
+    then the twiddles between the stages, e^{+j2π k1·c2/C} at C + k1·RS + c2
+    in the kernel's padded row stride RS = C2 + 1 (C2 > 1; else 1)."""
+    C1, C2 = fft_plan(C)
+    rs = C2 + 1 if C2 > 1 else 1
+    cos, sin = pfb_twiddles(C)
+    k1c2 = np.zeros((C1, rs), np.int64)
+    k1c2[:, :C2] = np.arange(C1)[:, None] * np.arange(C2)[None, :]
+    idx = np.concatenate([np.arange(C), k1c2.ravel()])
+    return np.stack([cos[idx], sin[idx]], axis=-1)
+
+
 @functools.cache
-def _twiddles(C: int, device: torch.device) -> tuple:
-    """cos and sin of 2π·i/C in float64 on ``device``: the kernel's
-    twiddle steps."""
-    return tuple(torch.from_numpy(t).to(device) for t in pfb_twiddles(C))
+def _table(C: int, device: torch.device) -> torch.Tensor:
+    """:func:`fft_table` on ``device``, once per (C, device)."""
+    return torch.from_numpy(fft_table(C)).to(device)
 
 
 def fused_pfb_demod(raw: torch.Tensor, hist: torch.Tensor, h, C: int,
@@ -106,17 +134,17 @@ def fused_pfb_demod(raw: torch.Tensor, hist: torch.Tensor, h, C: int,
         raise ValueError(f"h_dev must be contiguous float32 [{P}, {C}] on "
                          f"{dev}")
     hist = hist.contiguous()
-    cos, sin = _twiddles(C, dev)
+    C1, C2 = fft_plan(C)
+    table = _table(C, dev)
     d = torch.empty((n // (2 * C), C), dtype=torch.float32, device=dev)
     new_hist = torch.empty_like(hist)
     lib = build.load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.fused_pfb_launch(raw.data_ptr(), hist.data_ptr(),
-                                  h_dev.data_ptr(), cos.data_ptr(),
-                                  sin.data_ptr(), d.data_ptr(),
-                                  new_hist.data_ptr(), n, C, P,
-                                  int(bool(precise)), stream)
+                                  h_dev.data_ptr(), table.data_ptr(),
+                                  d.data_ptr(), new_hist.data_ptr(), n, C, C1,
+                                  C2, P, int(bool(precise)), stream)
     _raise_on(rc, "fused_pfb")
     fused_pfb_demod.launches += 1
     return d, new_hist

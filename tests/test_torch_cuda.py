@@ -149,8 +149,12 @@ def test_cplx_kernel_matches_ref(cuda_device, precise, cond, chain):
         assert _snr_db(want, got) > 110.0
 
 
-@pytest.mark.parametrize("buf", [BUF, 16 * BUF])      # one tile, sixteen tiles
-@pytest.mark.parametrize("blocks", [1, 5])
+# one tile; several tiles; several and a remainder tile of 64 step pairs
+# (n/4 stays a multiple of 128: on other lengths the plain version's flat
+# affine scan is itself below the 110 dB bar against a float64 tracker)
+@pytest.mark.parametrize("buf", [BUF, 16 * BUF, 16 * BUF + 8 * 64])
+# 64 blocks: the look-back crosses blocks
+@pytest.mark.parametrize("blocks", [1, 5, 64])
 @pytest.mark.parametrize("precise", [True, False])
 def test_q1_kernel_matches_ref(cuda_device, precise, blocks, buf):
     pipe = BlockPipeline(config_from_cli_opts(
@@ -288,7 +292,10 @@ def _wrapped_ok(want, got):
                                                         snr)
 
 
-@pytest.mark.parametrize("C", [4, 8, 12, 16, 32, 64])
+# every FFT plan: radix and direct factors, up to 256 channels, and 17 and
+# 251 (primes above 16: the direct DFT, C2 = 1)
+@pytest.mark.parametrize("C", [2, 3, 4, 5, 8, 12, 16, 17, 32, 48, 64, 128,
+                               251, 256])
 @pytest.mark.parametrize("data", ["bank", "noise"])
 def test_pfb_kernel_matches_ref(cuda_device, data, C):
     pfb = PolyphaseChannelizer(C)
@@ -310,6 +317,64 @@ def test_pfb_kernel_matches_ref(cuda_device, data, C):
         assert torch.equal(hist_k, hist_r)
 
 
+# a prototype of 7 taps per branch: the kernel's plan read at run time, also
+# where C is a power of two (compiled in for 12 taps)
+@pytest.mark.parametrize("C", [4, 12, 64])
+def test_pfb_kernel_runtime_plan_matches_ref(cuda_device, C):
+    pfb = PolyphaseChannelizer(C, taps_per_phase=7)
+    n = 2 * C * 96
+    hist_k = torch.zeros((2, pfb.hist_len), device=cuda_device)
+    hist_r = hist_k.clone()
+    for blk in range(2):
+        raw = torch.from_numpy(_bank_iq(C * CR, (0.0, 2 * CR), n, seed=blk)
+                               ).to(cuda_device)
+        d, hist_k = k6.fused_pfb_demod(raw, hist_k, pfb._h_np, C)
+        want, hist_r = k6.fused_pfb_demod_ref(raw, hist_r, pfb._h_np, C)
+        ok, detail = _wrapped_ok(want, d)
+        assert ok, detail
+        assert torch.equal(hist_k, hist_r)
+
+
+# raw bytes that start 2 bytes into a 4-byte word: every tile's words are
+# shifted by a sample, with one loose sample at either end
+@pytest.mark.parametrize("C", [3, 64])
+def test_pfb_kernel_on_bytes_two_into_a_word(cuda_device, C):
+    pfb = PolyphaseChannelizer(C)
+    n = 2 * C * 96
+    buf = torch.zeros(2 * n + 2, dtype=torch.uint8, device=cuda_device)
+    buf[2:] = torch.from_numpy(_bank_iq(C * CR, (CR,), n, seed=9)).to(
+        cuda_device)
+    raw = buf[2:]
+    assert raw.data_ptr() % 4 == 2
+    hist = torch.zeros((2, pfb.hist_len), device=cuda_device)
+    d, h = k6.fused_pfb_demod(raw, hist, pfb._h_np, C)
+    want, hw = k6.fused_pfb_demod_ref(raw, hist, pfb._h_np, C)
+    ok, detail = _wrapped_ok(want, d)
+    assert ok, detail
+    assert torch.equal(h, hw)
+
+
+def test_pfb_kernel_refuses_other_small_factors(cuda_device):
+    """C = 4 is compiled in as 2 x 2 (the wrapper's plan): the entry point
+    refuses 4 x 1, whose twiddle table the 2 x 2 FFT would read past."""
+    from demodulator_tpu_torch.ops.cuda import build
+    pfb = PolyphaseChannelizer(4)
+    n = 2 * 4 * 16
+    raw = torch.zeros(2 * n, dtype=torch.uint8, device=cuda_device)
+    hist = torch.zeros((2, pfb.hist_len), device=cuda_device)
+    h = torch.from_numpy(pfb._h_np.astype(np.float32)).to(cuda_device)
+    table = torch.from_numpy(k6.fft_table(4)).to(cuda_device)
+    d = torch.empty((n // 8, 4), device=cuda_device)
+    nh = torch.empty_like(hist)
+    for C1, C2, ok in ((4, 1, False), (2, 2, True)):
+        rc = build.load().fused_pfb_launch(
+            raw.data_ptr(), hist.data_ptr(), h.data_ptr(), table.data_ptr(),
+            d.data_ptr(), nh.data_ptr(), n, 4, C1, C2, pfb.P, 0,
+            torch.cuda.current_stream().cuda_stream)
+        assert (rc == 0) == ok, (C1, C2, rc)
+    torch.cuda.synchronize()
+
+
 def test_pfb_kernel_on_block_tpu_kernel_could_not_tile(cuda_device):
     """C = 4, 1500 rows of 128 samples (the bank4 block)."""
     pfb = PolyphaseChannelizer(4)
@@ -323,7 +388,7 @@ def test_pfb_kernel_on_block_tpu_kernel_could_not_tile(cuda_device):
     assert torch.equal(h, hw)
 
 
-@pytest.mark.parametrize("C", [4, 64])
+@pytest.mark.parametrize("C", [4, 12, 17, 64])
 def test_pfb_kernel_chunked_equals_per_block(cuda_device, C):
     """Each output's arithmetic does not depend on where the blocks are
     cut: one launch over 5 blocks is bit-equal to 5 launches."""

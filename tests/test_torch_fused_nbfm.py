@@ -126,6 +126,8 @@ def test_kernel_constants_match_python():
     assert int(m.group(1)) == k.MAX_TAPS
     m = re.search(r"kMaxCplxTaps = (\d+);", src)
     assert int(m.group(1)) == k.MAX_CPLX_TAPS
-    m = re.search(r"kTile = (\d+);", (CSRC / "fused_nbfm_q1.cu").read_text())
-    assert int(m.group(1)) == k.Q1_TILE
+    # K4 and K5 take their tile at launch (Q1_TILE), up to kMaxTile
+    m = re.search(r"kMaxTile = (\d+);", (CSRC / "fused_nbfm_q1.cu").read_text())
+    assert int(m.group(1)) == k.Q1_MAX_TILE
+    assert 1 <= k.Q1_TILE <= k.Q1_MAX_TILE
 
