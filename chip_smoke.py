@@ -10,10 +10,13 @@ Phases, each fatal on failure (exit code != 0, no result line):
 3. kernels against their plain PyTorch versions on the card, at the main
    paths' shapes:
    - NBFM (16 blocks of 256 KiB), > 110 dB on an FM tone capture (SNR and
-     max error also printed on noise): fused_nbfm (K1) precise/fast x
-     shift/normalize x Butterworth/Chebyshev taps; fused_nbfm_cplx (K3)
+     max error also printed on noise), the precise K1 and K3 equal to their
+     plain versions on the tone and on noise: fused_nbfm (K1) precise/fast
+     x shift/normalize x Butterworth/Chebyshev taps; fused_nbfm_cplx (K3)
      with one -L stage and one -q 2 stage x shift/normalize x precise/fast,
-     and with both stages precise/fast; fused_nbfm_q1 (K4) and
+     and with both stages precise/fast; K1 and K3 (two stages) precise,
+     equal, on rows of 4·(4k + 3) bytes starting 4 bytes past a 16-byte
+     boundary, with the CLI's taps and with 32; fused_nbfm_q1 (K4) and
      fused_nbfm_q1_seq (K5) precise/fast, their entering and final offsets
      within 1e-3, K5 also against K4; dma_floor (K2) exactly;
    - fused_pfb (K6) for every C of tests/test_torch_cuda.py (2 to 256,
@@ -185,17 +188,23 @@ def pipe_of(extra: list) -> BlockPipeline:
         device="cpu")
 
 
-def compare(label: str, pieces: dict, kernel, plain) -> float:
-    """Kernel against plain version on each piece; > 110 dB on the tone.
-    Returns the tone's max |err|."""
+def compare(label: str, pieces: dict, kernel, plain,
+            exact: bool = False) -> float:
+    """Kernel against plain version on each piece; > 110 dB on the tone,
+    or, ``exact``, equal on every piece (the precise K1 and K3 do the plain
+    version's float32 operations in its order).  Returns the tone's max
+    |err|."""
     res = {}
     for fname, raw in pieces.items():
-        got = kernel(raw).cpu().numpy()
-        want = plain(raw).cpu().numpy()
+        got, want = kernel(raw), plain(raw)
+        equal = torch.equal(got, want)
+        got, want = got.cpu().numpy(), want.cpu().numpy()
         res[fname] = (snr_db(want, got), float(np.max(np.abs(want - got))))
+        check(equal or not exact, f"{label}: differs from its plain version "
+              f"on the {fname}")
     (s_t, e_t), (s_n, e_n) = res["tone"], res["noise"]
     say(f"{label}: tone {s_t:.1f} dB max|err| {e_t:.3g}; noise {s_n:.1f} dB "
-        f"max|err| {e_n:.3g}")
+        f"max|err| {e_n:.3g}" + ("; equal on both" if exact else ""))
     check(s_t > BAR_KERNEL_DB, f"{label}: {s_t:.1f} dB <= {BAR_KERNEL_DB} dB "
           f"on the tone")
     return e_t
@@ -218,7 +227,8 @@ def phase_kernels_cplx_q1(pieces: dict, dev) -> dict:
                     f"{[len(t) - 1 for t, _ in st]}) "
                     f"{'precise' if precise else 'fast'} {cond}", pieces,
                     lambda r: fused_nbfm_cplx(r, st, taps, cond, precise),
-                    lambda r: fused_nbfm_cplx_ref(r, st, taps, cond, precise))
+                    lambda r: fused_nbfm_cplx_ref(r, st, taps, cond, precise),
+                    exact=precise)
                 key = (label, precise)
                 errs[key] = max(errs.get(key, 0.0), e)
     q1 = pipe_of(["-q", "1"])
@@ -275,33 +285,54 @@ def phase_kernels(dev) -> dict:
                 "chebyshev -m 1 -d 8": taps_of({"S": "96000", "l": "12500",
                                                 "m": "1", "d": "8"})}
     errs = {("default", True): 0.0, ("default", False): 0.0}
+    pieces = {"tone": tone, "noise": noise}
     for tname, taps in tap_sets.items():
         for precise in (True, False):
             for cond in ("shift", "normalize"):
-                res = {}
-                for fname, raw in (("tone", tone), ("noise", noise)):
-                    got = fused_nbfm(raw, taps, cond, precise).cpu().numpy()
-                    want = fused_nbfm_ref(raw, taps, cond,
-                                          precise).cpu().numpy()
-                    res[fname] = (snr_db(want, got),
-                                  float(np.max(np.abs(want - got))))
-                (s_t, e_t), (s_n, e_n) = res["tone"], res["noise"]
-                say(f"fused_nbfm {tname} (D={len(taps) - 1}) "
-                    f"{'precise' if precise else 'fast'} {cond}: tone "
-                    f"{s_t:.1f} dB max|err| {e_t:.3g}; noise {s_n:.1f} dB "
-                    f"max|err| {e_n:.3g}")
-                check(s_t > BAR_KERNEL_DB,
-                      f"fused_nbfm {tname} {precise=} {cond}: {s_t:.1f} dB "
-                      f"<= {BAR_KERNEL_DB} dB on the tone")
+                e = compare(
+                    f"fused_nbfm {tname} (D={len(taps) - 1}) "
+                    f"{'precise' if precise else 'fast'} {cond}", pieces,
+                    lambda r: fused_nbfm(r, taps, cond, precise),
+                    lambda r: fused_nbfm_ref(r, taps, cond, precise),
+                    exact=precise)
                 key = ("default", precise)
-                errs[key] = max(errs[key], e_t)
+                errs[key] = max(errs[key], e)
+    phase_kernels_odd_rows(rng, dev)
     got = dma_floor(noise).cpu()
     check(torch.equal(got, dma_floor_ref(noise).cpu()),
           "dma_floor differs from dma_floor_ref")
     say("dma_floor: equal to dma_floor_ref")
-    errs.update(phase_kernels_cplx_q1({"tone": tone, "noise": noise}, dev))
+    errs.update(phase_kernels_cplx_q1(pieces, dev))
     errs["pfb"] = phase_kernels_pfb(dev)
     return errs
+
+
+def phase_kernels_odd_rows(rng, dev) -> None:
+    """Phase 3, K1 and K3 precise on rows of 4·(4k + 3) bytes that start 4
+    bytes past a 16-byte boundary (their scalar loads and stores), with the
+    CLI's taps and with 32 audio and 32 stage taps (counts read at run
+    time): equal to their plain versions."""
+    n = 4 * (4 * (BB // 16) + 3)
+    buf = torch.empty(NB * n + 32, dtype=torch.uint8, device=dev)
+    base = (16 - buf.data_ptr() % 16) % 16 + 4
+    raw = buf[base: base + NB * n].view(NB, n)
+    raw.copy_(torch.from_numpy(tone_iq(NB * n, 0, rng).reshape(NB, n)))
+    taps = taps_of({"S": "96000", "l": "12500"})
+    taps32 = rng.uniform(-0.5, 0.5, 32)
+    st2 = pipe_of(["-q", "2", "-L", "12500"]).stage_consts()
+    st32 = tuple((rng.uniform(-0.3, 0.3, 32), tuple(rng.uniform(-1, 1, 2)))
+                 for _ in range(2))
+    for label, t, st in (("CLI taps", taps, st2),
+                         ("32 audio and stage taps", taps32, st32)):
+        got, want = (fused_nbfm(raw, t), fused_nbfm_ref(raw, t))
+        got3, want3 = (fused_nbfm_cplx(raw, st, t),
+                       fused_nbfm_cplx_ref(raw, st, t))
+        check(torch.equal(got, want) and torch.equal(got3, want3),
+              f"fused_nbfm / fused_nbfm_cplx on rows of {n} bytes, "
+              f"{label}: differ from their plain versions")
+        say(f"fused_nbfm and fused_nbfm_cplx (2 stages) precise on {NB} rows "
+            f"of {n} bytes starting {raw.data_ptr() % 16} bytes past a "
+            f"16-byte boundary, {label}: equal to their plain versions")
 
 
 def bank_iq(fs: float, offsets, carriers, start: int, n: int, seed: int,
@@ -795,13 +826,16 @@ def phase_timings(dev, smi: str) -> dict:
         }
         run_cases(out, B, cases, gbytes,
                   f"B={B:3d} ({raw.numel() >> 20} MiB in)")
-        for name in ("fused_nbfm_cplx 1 stage", "fused_nbfm_cplx 2 stages",
+        for name in ("fused_nbfm precise", "fused_nbfm fast",
+                     "fused_nbfm_cplx 1 stage", "fused_nbfm_cplx 2 stages",
+                     "fused_nbfm_cplx 2 stages fast",
                      "fused_nbfm_q1 precise", "fused_nbfm_q1_seq precise"):
             us, floor = (out[(name, B, "device_us")],
                          out[("dma_floor", B, "device_us")])
             if us is not None and floor is not None:
                 say(f"B={B:3d} {name}: device time {us / floor:.2f}x "
-                    f"dma_floor's")
+                    f"dma_floor's ({gbytes / (us / 1e6):.1f} GB/s against "
+                    f"its {gbytes / (floor / 1e6):.1f})")
         del raw
     floor_us = out[("dma_floor", NB, "device_us")]
     floor_gbs = None if floor_us is None else 2 * NB * BB / 1e3 / floor_us

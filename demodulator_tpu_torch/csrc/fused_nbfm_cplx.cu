@@ -20,104 +20,38 @@
 // (models/nbfm.py, BlockPipeline._fused_inlpf / _fused_q2l).
 //
 // What bounds it: the bytes are K1's (fused_nbfm.cu), 4 in and 4 out per
-// output, and a stage adds only 4*(Dc+1) multiply-adds per word (Dc is 1
-// or 2 for the reference's filters).  On the card a word is two complex
-// samples, so a stage is plain indexing: the TPU's sub-lattice lane rolls
-// are gone.  A CTA of 256 threads owns 256 output words and stages, in
-// shared memory, the conditioned pairs it needs: 2*(256 + D) for the
-// discriminator and audio FIR, plus Dc of each stage's reach.  Each stage
-// runs once per pair into a second shared buffer (ping-pong), so the halo
-// is recomputed but nothing intermediate touches device memory.  That
-// staging, not the bytes, bounds it: on an H100 (700 W) one stage took
-// 2.2x K1's time for 64 MiB, two stages 2.9x, with a __syncthreads after
-// the load, after each stage and before the FIR, and float2 shared-memory
-// traffic for 2-3 pairs per thread per stage.
+// output, and a stage adds only 8 * (Dc + 1) multiplies and adds per word
+// (Dc is 1 or 2 for the reference's filters).  On the card a word is two
+// complex samples, so a stage is plain indexing: the TPU's sub-lattice lane
+// rolls are gone.  The body is nbfm_span.cuh: each lane keeps its 8
+// conditioned samples per chunk in registers through the stages, the
+// discriminator and the FIR, and takes each stage's n - 1 samples of
+// look-ahead from the next lane by warp shuffles, so nothing is staged in
+// shared memory and there is no barrier.  The CLI's counts are
+// compiled in: audio taps 2 and 3, and one or two stages of 2 or 3 taps;
+// any other count up to kMaxTaps / kMaxCplxTaps runs the same body with the
+// counts read at run time.
 
-#include "nbfm_device.cuh"
+#include "nbfm_span.cuh"
 
 namespace {
 
 using namespace nbfm;
 
-constexpr int kMaxStages = 2;
-// pairs staged per CTA: the discriminator's 2*(256 + D) plus each stage's Dc
-constexpr int kMaxPairs =
-    2 * (kThreads + kMaxTaps - 1) + kMaxStages * (kMaxCplxTaps - 1) + 2;
+template <int kT, int kNS, int kS0, int kS1, bool kPrecise, bool kNormalize>
+__global__ void __launch_bounds__(kThreads) fused_nbfm_cplx_kernel(SpanArgs a) {
+  nbfm_span<kT, kNS, kS0, kS1, kPrecise, kNormalize>(a);
+}
 
-struct Stages {
-  float t[kMaxStages][kMaxCplxTaps];
-  float c[kMaxStages][2];
-  int n[kMaxStages];
-  int count;
-};
-
-// grid (ceil(words / 256), blocks); in/out rows of `words` elements.
-template <bool kPrecise, bool kNormalize>
-__global__ void __launch_bounds__(kThreads)
-fused_nbfm_cplx_kernel(const uint32_t* __restrict__ in, float* __restrict__ out,
-                       long long words, Taps taps, Stages st) {
-  __shared__ float2 buf[2][kMaxPairs];
-  __shared__ float x[kThreads + kMaxTaps - 1];
-  const long long row = static_cast<long long>(blockIdx.y) * words;
-  const long long w0 = static_cast<long long>(blockIdx.x) * kThreads;
-  const long long S = 2 * words;  // complex samples in the block
-  const long long p0 = 2 * w0;    // block pair index of local pair 0
-  const int t = threadIdx.x;
-  const int D = taps.n - 1;
-  int reach = 0;
-  for (int s = 0; s < st.count; ++s) reach += st.n[s] - 1;
-
-  // conditioned input pairs [p0, p0 + len), zero past the block's end
-  const int in_words = (2 * (kThreads + D) + reach + 1) / 2;
-  int len = 2 * in_words;
-  for (int i = t; i < in_words; i += kThreads) {
-    const long long gw = w0 + i;
-    float2 lo = make_float2(0.0f, 0.0f), hi = lo;
-    if (gw < words) {
-      const uint32_t w = in[row + gw];
-      lo = make_float2(condition<kNormalize>(w & 255u),
-                       condition<kNormalize>((w >> 8) & 255u));
-      hi = make_float2(condition<kNormalize>((w >> 16) & 255u),
-                       condition<kNormalize>(w >> 24));
-    }
-    buf[0][2 * i] = lo;
-    buf[0][2 * i + 1] = hi;
+template <int kT, int kNS, int kS0, int kS1>
+void launch(const SpanArgs& a, dim3 grid, int precise, int normalize, cudaStream_t s) {
+  if (precise) {
+    if (normalize) fused_nbfm_cplx_kernel<kT, kNS, kS0, kS1, true, true><<<grid, kThreads, 0, s>>>(a);
+    else fused_nbfm_cplx_kernel<kT, kNS, kS0, kS1, true, false><<<grid, kThreads, 0, s>>>(a);
+  } else {
+    if (normalize) fused_nbfm_cplx_kernel<kT, kNS, kS0, kS1, false, true><<<grid, kThreads, 0, s>>>(a);
+    else fused_nbfm_cplx_kernel<kT, kNS, kS0, kS1, false, false><<<grid, kThreads, 0, s>>>(a);
   }
-  __syncthreads();
-
-  int cur = 0;
-  for (int s = 0; s < st.count; ++s) {
-    const int n = st.n[s];
-    const int len_out = len - (n - 1);
-    const float* tk = st.t[s];
-    for (int i = t; i < len_out; i += kThreads) {
-      float2 y = make_float2(0.0f, 0.0f);
-      if (p0 + i < S) {
-        y = make_float2(st.c[s][0], st.c[s][1]);
-        for (int k = 0; k < n; ++k) {
-          const float2 z = buf[cur][i + k];
-          y.x = __fadd_rn(y.x, __fmul_rn(tk[k], z.x));
-          y.y = __fadd_rn(y.y, __fmul_rn(tk[k], z.y));
-        }
-      }
-      buf[1 - cur][i] = y;
-    }
-    __syncthreads();
-    cur = 1 - cur;
-    len = len_out;
-  }
-
-  for (int j = t; j < kThreads + D; j += kThreads) {
-    float v = 0.0f;
-    if (w0 + j < words) {
-      const float2 lo = buf[cur][2 * j], hi = buf[cur][2 * j + 1];
-      v = demod_pairs<kPrecise>(lo.x, lo.y, hi.x, hi.y);
-    }
-    x[j] = v;
-  }
-  __syncthreads();
-  const long long q = w0 + t;
-  if (q < words) out[row + q] = audio_fir(taps, x + t);
 }
 
 }  // namespace
@@ -136,29 +70,38 @@ extern "C" int fused_nbfm_cplx_launch(const void* in, void* out,
       ntaps > kMaxTaps || nstages < 1 || nstages > kMaxStages) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  Stages st{};
-  st.count = nstages;
   for (int s = 0; s < nstages; ++s) {
     if (stage_n[s] < 1 || stage_n[s] > kMaxCplxTaps) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
-    st.n[s] = stage_n[s];
-    for (int k = 0; k < stage_n[s]; ++k) st.t[s][k] = stage_taps[s * kMaxCplxTaps + k];
-    st.c[s][0] = stage_c[2 * s];
-    st.c[s][1] = stage_c[2 * s + 1];
   }
-  const Taps taps = make_taps(taps_host, ntaps);
-  const dim3 grid(static_cast<unsigned>((words + kThreads - 1) / kThreads),
-                  static_cast<unsigned>(blocks));
+  SpanArgs a = span_args(in, out, words, taps_host, ntaps, stage_n, nstages);
+  for (int s = 0; s < nstages; ++s) {
+    for (int k = 0; k < stage_n[s]; ++k) a.st.t[s][k] = stage_taps[s * kMaxCplxTaps + k];
+    a.st.c[s][0] = stage_c[2 * s];
+    a.st.c[s][1] = stage_c[2 * s + 1];
+  }
+  const dim3 grid = span_grid(blocks, a.spans);
   auto s = static_cast<cudaStream_t>(stream);
-  auto src = static_cast<const uint32_t*>(in);
-  auto dst = static_cast<float*>(out);
-  if (precise) {
-    if (normalize) fused_nbfm_cplx_kernel<true, true><<<grid, kThreads, 0, s>>>(src, dst, words, taps, st);
-    else fused_nbfm_cplx_kernel<true, false><<<grid, kThreads, 0, s>>>(src, dst, words, taps, st);
-  } else {
-    if (normalize) fused_nbfm_cplx_kernel<false, true><<<grid, kThreads, 0, s>>>(src, dst, words, taps, st);
-    else fused_nbfm_cplx_kernel<false, false><<<grid, kThreads, 0, s>>>(src, dst, words, taps, st);
+  // the CLI's counts (2 or 3 each) compiled in, keyed T S0 S1 (S1 = 0: one
+  // stage); any other count read at run time
+  auto small = [](int n) { return n == 2 || n == 3; };
+  const int s1 = nstages == 2 ? stage_n[1] : 0;
+  const int key = small(ntaps) && small(stage_n[0]) && (nstages == 1 || small(s1))
+                      ? 100 * ntaps + 10 * stage_n[0] + s1
+                      : 0;
+  switch (key) {
+#define CPLX_FIXED(T, S0, S1)                                         \
+  case 100 * T + 10 * S0 + S1:                                        \
+    launch<T, (S1 ? 2 : 1), S0, S1>(a, grid, precise, normalize, s);    \
+    break;
+    CPLX_FIXED(2, 2, 0) CPLX_FIXED(2, 3, 0) CPLX_FIXED(3, 2, 0) CPLX_FIXED(3, 3, 0)
+    CPLX_FIXED(2, 2, 2) CPLX_FIXED(2, 2, 3) CPLX_FIXED(2, 3, 2) CPLX_FIXED(2, 3, 3)
+    CPLX_FIXED(3, 2, 2) CPLX_FIXED(3, 2, 3) CPLX_FIXED(3, 3, 2) CPLX_FIXED(3, 3, 3)
+#undef CPLX_FIXED
+    default:
+      if (nstages == 1) launch<0, 1, 0, 0>(a, grid, precise, normalize, s);
+      else launch<0, 2, 0, 0>(a, grid, precise, normalize, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -28,7 +28,7 @@
 //      (two samples) a load, all of a thread's kStageWords loads in flight
 //      at once, and one 16-byte store, conditioned exactly as the plain
 //      version but with byte permutes instead of int-to-float conversions
-//      (cond_word); the last tile writes the new history from there;
+//      (condition_word); the last tile writes the new history from there;
 //   2. branch filter, into z (float32, frames padded to C + C2 where
 //      C % 32 == 0): a thread takes channel c of kRun consecutive frames and
 //      slides a ring of kRun samples down the staged column, so each tap
@@ -200,23 +200,6 @@ size_t smem_bytes(const Plan& p) {
   const size_t x = sizeof(float2) * (static_cast<size_t>(p.P) * p.C + p.F * p.C + 1);
   const size_t u = is_small(p.C) ? 0 : sizeof(double2) * kWarps * 2 * p.G * p.C1 * p.RS;
   return tw + z + (x > u ? x : u);
-}
-
-// ((b + 1) & 255) - 128 as a float, exactly (condition<false>): the bits of
-// 2^23 + ((b + 1) & 255), less 2^23 + 128, with no int-to-float conversion
-__device__ __forceinline__ float cond_byte(uint32_t b) {
-  return __fsub_rn(__uint_as_float(0x4B000000u | ((b + 1u) & 255u)), 8388736.0f);
-}
-
-// cond_byte of the four bytes of w, byte 0 first: every byte incremented
-// mod 256 at once, then each placed under 2^23's bits by a byte permute
-__device__ __forceinline__ float4 cond_word(uint32_t w) {
-  const uint32_t v = ((w & 0x7f7f7f7fu) + 0x01010101u) ^ (w & 0x80808080u);
-  const float k = 8388736.0f;
-  return make_float4(__fsub_rn(__uint_as_float(__byte_perm(v, 0x4B000000u, 0x7540)), k),
-                     __fsub_rn(__uint_as_float(__byte_perm(v, 0x4B000000u, 0x7541)), k),
-                     __fsub_rn(__uint_as_float(__byte_perm(v, 0x4B000000u, 0x7542)), k),
-                     __fsub_rn(__uint_as_float(__byte_perm(v, 0x4B000000u, 0x7543)), k));
 }
 
 __device__ __forceinline__ double2 cmul(double2 a, double2 w) {
@@ -633,7 +616,8 @@ pfb_kernel(const uint16_t* __restrict__ in, const float* __restrict__ hist,
   if (threadIdx.x < 2) {
     const int i = threadIdx.x ? w0 + 2 * nw : nh;
     if (i < (threadIdx.x ? len : w0)) {
-      x[i] = make_float2(cond_byte(src[i] & 255u), cond_byte(src[i] >> 8));
+      const float4 c = condition_word<false>(src[i]);  // bytes 2, 3 unused
+      x[i] = make_float2(c.x, c.y);
     }
   }
   // this thread's words: w0/2 + threadIdx.x + k*kThreads (one round of
@@ -651,7 +635,7 @@ pfb_kernel(const uint16_t* __restrict__ in, const float* __restrict__ hist,
 #pragma unroll
     for (int r = 0; r < kStageWords; ++r) {
       if (v0 + r * kThreads + static_cast<int>(threadIdx.x) < nw) {
-        x4[v0 + r * kThreads] = cond_word(w[r]);
+        x4[v0 + r * kThreads] = condition_word<false>(w[r]);
       }
     }
   }

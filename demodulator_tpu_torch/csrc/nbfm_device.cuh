@@ -1,6 +1,6 @@
 // Device helpers shared by the fused NBFM kernels (fused_nbfm.cu,
-// fused_nbfm_cplx.cu, fused_nbfm_q1.cu): conditioning, the polynomial
-// atan2 discriminator and the stationary audio FIR.
+// fused_nbfm_cplx.cu, fused_nbfm_q1.cu, fused_pfb.cu): conditioning and the
+// polynomial atan2 discriminator.
 //
 // Arithmetic is written with explicit round-to-nearest intrinsics so that
 // nvcc contracts nothing into FMAs: every operation rounds where the plain
@@ -84,13 +84,30 @@ __device__ __forceinline__ float atan2_poly(float y, float x) {
   return at;
 }
 
+// The conditioning of ops/conditioning.py without an int-to-float conversion.
+// A byte b placed under the bits of 2^23 is the float 2^23 + b, so
+// shiftOrigin's ((b + 1) & 255) - 128 is that float less 2^23 + 128 (with b
+// already incremented mod 256), and normalize's float(b) is it less 2^23,
+// both exact; normalize then rounds b * f32(2/255) and the - 1 as the plain
+// version does.  The byte permute puts byte k of w (k = 0..3) in the low
+// byte of 0x4B000000.
 template <bool kNormalize>
-__device__ __forceinline__ float condition(uint32_t b) {
+__device__ __forceinline__ float condition_byte(uint32_t w, uint32_t k) {
+  const float f = __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7540u + k));
   if constexpr (kNormalize) {
-    return __fsub_rn(__fmul_rn(static_cast<float>(b), kNormScale), 1.0f);
+    return __fsub_rn(__fmul_rn(__fsub_rn(f, 8388608.0f), kNormScale), 1.0f);
   } else {
-    return static_cast<float>(static_cast<int>((b + 1u) & 255u) - 128);
+    return __fsub_rn(f, 8388736.0f);
   }
+}
+
+// The four bytes of w conditioned, byte 0 first.  shiftOrigin increments
+// every byte mod 256 at once (no carry crosses a byte) before the permutes.
+template <bool kNormalize>
+__device__ __forceinline__ float4 condition_word(uint32_t w) {
+  if constexpr (!kNormalize) w = ((w & 0x7f7f7f7fu) + 0x01010101u) ^ (w & 0x80808080u);
+  return make_float4(condition_byte<kNormalize>(w, 0), condition_byte<kNormalize>(w, 1),
+                     condition_byte<kNormalize>(w, 2), condition_byte<kNormalize>(w, 3));
 }
 
 // Two conditioned complex samples (a + bi, c + di) -> one discriminator
@@ -101,23 +118,6 @@ __device__ __forceinline__ float demod_pairs(float a, float b, float c, float d)
   const float zj = __fsub_rn(__fmul_rn(b, c), __fmul_rn(a, d));
   const float x = atan2_poly<kPrecise>(zj, zr);
   return isnan(x) ? 0.0f : x;
-}
-
-// One 32-bit little-endian word (I0, Q0, I1, Q1) -> one discriminator sample.
-template <bool kPrecise, bool kNormalize>
-__device__ __forceinline__ float demod_word(uint32_t w) {
-  return demod_pairs<kPrecise>(condition<kNormalize>(w & 255u),
-                               condition<kNormalize>((w >> 8) & 255u),
-                               condition<kNormalize>((w >> 16) & 255u),
-                               condition<kNormalize>(w >> 24));
-}
-
-// Stationary anti-causal audio FIR on staged samples: sum_d t[d]*x[d], from
-// the first tap on, in tap order.
-__device__ __forceinline__ float audio_fir(const Taps& taps, const float* x) {
-  float y = __fmul_rn(taps.t[0], x[0]);
-  for (int d = 1; d < taps.n; ++d) y = __fadd_rn(y, __fmul_rn(taps.t[d], x[d]));
-  return y;
 }
 
 inline Taps make_taps(const float* host, int n) {

@@ -26,7 +26,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("fused_nbfm.cu", "fused_nbfm_cplx.cu", "fused_nbfm_q1.cu",
            "fused_pfb.cu")
-HEADERS = ("nbfm_device.cuh",)
+HEADERS = ("nbfm_device.cuh", "nbfm_span.cuh")
 # sm_90a (Hopper).  No --use_fast_math and no -prec-div=false: the precise
 # discriminator needs IEEE division and must keep denormals.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

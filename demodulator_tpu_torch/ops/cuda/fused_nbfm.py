@@ -15,7 +15,10 @@ The kernels (``csrc/*.cu``) take the raw bytes directly, uint8 ``[B, n]``,
 and read them as little-endian 32-bit words, one word per output: no
 [rows, 128] lane layout.  The TPU package's flat wrappers
 (``fused_nbfm_u32``, ``fused_nbfm``) existed only to avoid TPU relayouts,
-so this flat entry covers them.
+so this flat entry covers them.  K1 and K3 cut each row into warp spans
+(:func:`span_plan`): a lane loads 4 consecutive words per 16-byte chunk
+(:func:`lane_words`) and the spans overlap by the look-ahead their stages
+and audio FIR read (:func:`span_halo`).
 
 A wrapper given a CUDA tensor launches its kernel, adds one to its
 ``launches`` count and returns; a failed build or launch raises.  Given a
@@ -36,6 +39,7 @@ from . import build
 from ..demod import _ATAN_COEFFS, _ATAN_COEFFS_FAST, atan2_poly
 
 __all__ = ["MAX_TAPS", "MAX_CPLX_TAPS", "Q1_TILE", "Q1_MAX_TILE",
+           "SPAN_VECS", "span_halo", "span_plan", "lane_words",
            "fused_nbfm", "fused_nbfm_ref", "dma_floor", "dma_floor_ref",
            "fused_nbfm_cplx", "fused_nbfm_cplx_ref", "fused_nbfm_q1",
            "fused_nbfm_q1_ref", "fused_nbfm_q1_seq", "fused_nbfm_q1_seq_ref",
@@ -50,6 +54,37 @@ MAX_STAGES = 2  # complex stages in one K3 launch
 Q1_TILE = 2048
 Q1_MAX_TILE = 4096  # csrc/fused_nbfm_q1.cu kMaxTile
 MAX_BLOCKS = 65535  # the kernels' grid.y
+# K1's and K3's 16-byte chunks per lane (csrc/nbfm_span.cuh kVecs),
+# chosen by measurement (ops/cuda/sections.py, PERF.md)
+SPAN_VECS = 1
+SPAN_CHUNK = 128  # words of a chunk: 32 lanes of 4
+
+
+def span_halo(ntaps: int, stage_taps=()) -> int:
+    """Words past its written ones that a K1 or K3 warp span reads: the
+    stages' reach in complex samples, Σ (n − 1), halved up to words, plus
+    the audio FIR's D = ntaps − 1 (csrc/nbfm_span.cuh ``span_step``)."""
+    reach = sum(int(n) - 1 for n in stage_taps)
+    return (reach + 1) // 2 + int(ntaps) - 1
+
+
+def span_plan(words: int, ntaps: int, stage_taps=(),
+              vecs: int = SPAN_VECS) -> tuple[int, int]:
+    """(step, spans) of K1's and K3's warps over a row of ``words`` words.
+    Span j loads words [j·step, j·step + 128·vecs), zero past the row's
+    end, and writes [j·step, j·step + step) ∩ the row: its last words only
+    feed the look-ahead of the written ones.  The halo is rounded up to
+    whole lanes of 4 words, so every span starts 16-byte aligned."""
+    halo = -(-span_halo(ntaps, stage_taps) // 4) * 4
+    step = SPAN_CHUNK * vecs - halo
+    return step, -(-words // step)
+
+
+def lane_words(lane: int, vecs: int = SPAN_VECS) -> np.ndarray:
+    """The words of its span that lane ``lane`` (0..31) loads, one 16-byte
+    chunk of 4 consecutive words per 128: it writes those below ``step``."""
+    return np.array([SPAN_CHUNK * c + 4 * lane + i for c in range(vecs)
+                     for i in range(4)])
 
 
 def _taps32(taps) -> np.ndarray:

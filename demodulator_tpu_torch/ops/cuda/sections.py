@@ -1,26 +1,36 @@
-"""Where K4's and K6's device time goes: each kernel timed on the card with
-sections cut out of its source.
+"""Where K1's, K3's, K4's and K6's device time goes: each kernel timed on
+the card with sections cut out of its source.
 
-    python -m demodulator_tpu_torch.ops.cuda.sections
+    python -m demodulator_tpu_torch.ops.cuda.sections [span] [pfb] [q1]
 
-builds variants of ``csrc/fused_pfb.cu`` and ``csrc/fused_nbfm_q1.cu`` (each
-a copy with one more section replaced by a plain write, into a temporary
-directory, with the package's nvcc flags), times each with torch.profiler
-at the main paths' shapes on seeded random bytes (the kernels' work does not
-depend on the data), and prints one ``SECTIONS {json}`` line of device µs
-per launch.  K6 at C = 64 on one 0.25 s block of 12.288 Msps (bank64) and at
-C = 4 on a 10-block chunk of 768 ksps (bank4), cumulatively: the output
-alone, then staging, the branch filter, the discriminator, the FFT (the
-whole kernel).  K4 at 16 and 256 blocks of 256 KiB, with tiles of 1024,
-2048 and 4096 step pairs, and at Q1_TILE without its block look-back.  The
-variants compute wrong outputs; only their times mean anything.  Needs an
-NVIDIA GPU.
+builds variants of ``csrc/fused_nbfm.cu`` and ``csrc/fused_nbfm_cplx.cu``
+(with ``csrc/nbfm_span.cuh`` cut), ``csrc/fused_pfb.cu`` and
+``csrc/fused_nbfm_q1.cu`` (each a copy with one more section replaced by a
+plain write, into a temporary directory, with the package's nvcc flags),
+times each with torch.profiler at the main paths' shapes on seeded random
+bytes (the kernels' work does not depend on the data), and prints one
+``SECTIONS {json}`` line of device µs per launch.  K1 (precise, 2 audio
+taps) and K3 with one stage (-L) and two (-q 2 -L) at 16 and 256 blocks of
+256 KiB, cumulatively: the output store alone, then the loads and
+conditioning, the stages, the discriminator, the audio FIR (the whole
+kernel); the whole kernels and dma_floor (K2) with 1 and 2 16-byte chunks
+per lane (SPAN_VECS), and the whole kernels with the halo by a
+shared-memory exchange between warps instead of overlapping warp spans
+(each alternative checked equal to the package's kernel).  K6 at C = 64 on one 0.25 s block of 12.288 Msps
+(bank64) and at C = 4 on a 10-block chunk of 768 ksps (bank4),
+cumulatively: the output alone, then staging, the branch filter, the
+discriminator, the FFT (the whole kernel).  K4 at 16 and 256 blocks of
+256 KiB, with tiles of 1024, 2048 and 4096 step pairs, and at Q1_TILE
+without its block look-back.  The variants compute wrong outputs; only
+their times mean anything.  The arguments pick the kernels (span: K1, K2
+and K3; pfb: K6; q1: K4); none, all.  Needs an NVIDIA GPU.
 """
 from __future__ import annotations
 
 import ctypes
 import json
 import subprocess
+import sys
 import tempfile
 from pathlib import Path
 
@@ -83,15 +93,109 @@ def q1_variants() -> dict:
                 "off_in[1]);")}
 
 
+# K1's and K3's span body (csrc/nbfm_span.cuh): what replaces the sections
+# cut out; the sum keeps every conditioned (or staged) sample live
+_SPAN_TAIL = "  // stores:"
+_LOOPS = ("  float y[kVecs][4];\n#pragma unroll\n"
+          "  for (int c = 0; c < kVecs; ++c)\n#pragma unroll\n"
+          "    for (int i = 0; i < 4; ++i)\n")
+_SUM_Z = (_LOOPS +
+          "      y[c][i] = z[c][2 * i].x + z[c][2 * i].y + z[c][2 * i + 1].x"
+          " + z[c][2 * i + 1].y;\n")
+
+
+# The other way across the warp boundary: a CTA's 8 warps own consecutive
+# chunks, a warp's look-ahead past its lane 31 comes from the next warp's
+# first lanes through shared memory (one exchange per stage and one for
+# the FIR, a __syncthreads before and after each read), and only the CTA's
+# spans overlap by the halo.
+_GATHER_XCHG = """template <int P, int M, class T>
+__device__ __forceinline__ void gather(const T (&v)[kVecs][P], T (&e)[kVecs][M], int lane,
+                                       int live) {
+  __shared__ T xs[kWarps + 1][M];
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+    if (m < live && lane == m / P) xs[warp][m] = v[0][m % P];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+    if (m < live) {
+      const int src = lane + 1 + m / P;
+      T s[kVecs];
+#pragma unroll
+      for (int c = 0; c < kVecs; ++c) s[c] = shfl(v[c][m % P], src & 31);
+#pragma unroll
+      for (int c = 0; c < kVecs; ++c) {
+        constexpr int kLast = kVecs - 1;
+        if (src < 32) e[c][m] = s[c];
+        else if (c < kLast) e[c][m] = s[c < kLast ? c + 1 : c];
+        else e[c][m] = xs[warp + 1][(src - 32) * P + m % P];
+      }
+    }
+  }
+  __syncthreads();
+}
+
+"""
+
+
+def _exchange(src: str) -> str:
+    i = src.index("template <int P, int M, class T>")
+    j = src.index("// Stage S:")
+    src = src[:i] + _GATHER_XCHG + src[j:]
+    for old, new in (
+            ("  return kSpanWords - (halo + 3) / 4 * 4;",
+             "  return kWarps * kSpanWords - (halo + 3) / 4 * 4;"),
+            ("  const int span = blockIdx.x * kWarps + (threadIdx.x >> 5);\n"
+             "  if (span >= a.spans) return;  // whole warps",
+             "  const int span = blockIdx.x;\n"
+             "  if (span >= a.spans) return;  // whole CTAs"),
+            ("  const long long w0 = static_cast<long long>(span) * a.step;",
+             "  const long long w0 = static_cast<long long>(span) * a.step"
+             " + (threadIdx.x >> 5) * kSpanWords;"),
+            ("    if (128 * c + 4 * lane >= a.step) continue;",
+             "    if ((threadIdx.x >> 5) * kSpanWords + 128 * c + 4 * lane >="
+             " a.step) continue;"),
+            ("(spans + kWarps - 1) / kWarps", "spans")):
+        src = _sub(src, old, new)
+    return src
+
+
+def span_variants(stages: bool) -> dict:
+    """{label: {file: text}} of the span body cut cumulatively (K1 has no
+    stages to add), and the whole body with 2 chunks per lane and with the
+    halo by a shared-memory exchange."""
+    src = (build.CSRC / "nbfm_span.cuh").read_text()
+    out = {"output only": _cut(src, "  // loads", _SPAN_TAIL,
+                               "  float y[kVecs][4] = {};\n"),
+           "+ loads and conditioning": _cut(src, "  // the complex stages",
+                                            _SPAN_TAIL, _SUM_Z)}
+    if stages:
+        out["+ stages"] = _cut(src, "  // the discriminator", _SPAN_TAIL,
+                               _SUM_Z)
+    out["+ discriminator"] = _cut(
+        src, "  // the audio FIR", _SPAN_TAIL,
+        _LOOPS + "      y[c][i] = x[c][i];\n")
+    out["+ audio FIR (whole kernel)"] = src
+    out["whole kernel, 2 chunks per lane"] = _sub(
+        src, "constexpr int kVecs = 1;", "constexpr int kVecs = 2;")
+    out["whole kernel, halo by a shared-memory exchange"] = _exchange(src)
+    return {label: {"nbfm_span.cuh": text} for label, text in out.items()}
+
+
 def _compile(variants: dict, name: str, tmp: Path) -> dict:
-    """{variant: ctypes library}, all compiled at once."""
+    """{variant: ctypes library}, all compiled at once.  A variant is the
+    text of ``name``.cu, or {file: text} of the files it replaces."""
     procs = []
-    for i, (label, src) in enumerate(variants.items()):
+    for i, (label, files) in enumerate(variants.items()):
         d = tmp / f"{name}{i}"
         d.mkdir()
-        (d / f"{name}.cu").write_text(src)
-        for h in build.HEADERS:
-            (d / h).write_bytes((build.CSRC / h).read_bytes())
+        if isinstance(files, str):
+            files = {f"{name}.cu": files}
+        for f in (f"{name}.cu", *build.HEADERS):
+            (d / f).write_text(files.get(f, (build.CSRC / f).read_text()))
         cmd = [build.nvcc(), *build.NVCC_FLAGS, "-shared", "-o",
                str(d / "lib.so"), str(d / f"{name}.cu")]
         procs.append((label, d, subprocess.Popen(
@@ -116,7 +220,81 @@ def device_us(fn, pattern: str, calls: int = 20) -> float:
             fn()
         torch.cuda.synchronize()
     evts = [e for e in prof.key_averages() if pattern in e.key]
+    if not evts:
+        raise RuntimeError(f"no {pattern!r} kernel in the profile: "
+                           f"{[e.key for e in prof.key_averages()]}")
     return sum(e.device_time_total for e in evts) / sum(e.count for e in evts)
+
+
+def time_span(k1_libs: dict, k3_libs: dict, dev) -> dict:
+    """K1 precise and K3 with one stage (-L) and two (-q 2 -L) at the CLI's
+    taps (-S 96000 -l 12500 -L 12500: 2 audio taps, stages of 2), and
+    dma_floor beside the whole kernels."""
+    out = {}
+    taps = fused_nbfm._taps32([0.5, 0.5])
+    taps_c = (ctypes.c_float * len(taps))(*taps.tolist())
+    st = np.zeros((fused_nbfm.MAX_STAGES, fused_nbfm.MAX_CPLX_TAPS),
+                  np.float32)
+    st[:, :2] = [[0.9, -0.9], [0.5, 0.5]]
+    st_c = (ctypes.c_float * st.size)(*st.ravel().tolist())
+    st_n = (ctypes.c_int * fused_nbfm.MAX_STAGES)(2, 2)
+    sc = (ctypes.c_float * 4)(0.0, -2.0, 0.0, -2.0)
+    stages = tuple((st[i, :2], (0.0, -2.0)) for i in range(2))
+    rng = np.random.default_rng(2)
+    for B in (16, 256):
+        raw = torch.from_numpy(rng.integers(0, 256, (B, 262144), np.uint8)
+                               ).to(dev)
+        words = raw.shape[1] // 4
+        y = torch.empty((B, words), device=dev)
+        # the package's kernels, which the alternatives must equal
+        wants = [fused_nbfm.fused_nbfm(raw, taps)] + [
+            fused_nbfm.fused_nbfm_cplx(raw, stages[:ns], taps)
+            for ns in (1, 2)]
+        torch.cuda.synchronize()
+        runs = [("K1", label, lib, 0) for label, lib in k1_libs.items()]
+        runs += [(f"K3 {ns} stage{'s' * (ns > 1)}", label, lib, ns)
+                 for ns in (1, 2) for label, lib in k3_libs.items()]
+        for kernel, label, lib, ns in runs:
+            if ns == 0:
+                fn = lib.fused_nbfm_launch
+                fn.argtypes = build._SIGNATURES["fused_nbfm_launch"]
+                args = (taps_c, len(taps), 1, 0)
+            else:
+                fn = lib.fused_nbfm_cplx_launch
+                fn.argtypes = build._SIGNATURES["fused_nbfm_cplx_launch"]
+                args = (taps_c, len(taps), st_c, st_n, sc, ns, 1, 0)
+
+            def call():
+                rc = fn(raw.data_ptr(), y.data_ptr(), B, words, *args,
+                        torch.cuda.current_stream().cuda_stream)
+                if rc:
+                    raise RuntimeError(f"{kernel} {label}: CUDA error {rc}")
+            pattern = "fused_nbfm_kernel" if ns == 0 else "fused_nbfm_cplx"
+            key = f"{kernel} B={B}: {label}"
+            out[key] = round(device_us(call, pattern), 2)
+            print(f"{key}: {out[key]} us", file=sys.stderr, flush=True)
+            if "whole kernel" in label:   # the alternatives compute K1/K3
+                call()
+                out[f"{key}: equal to the package's"] = bool(
+                    torch.equal(y, wants[ns]))
+        for label, lib in k1_libs.items():
+            if label not in ("+ audio FIR (whole kernel)",
+                             "whole kernel, 2 chunks per lane"):
+                continue
+            fn = lib.dma_floor_launch
+            fn.argtypes = build._SIGNATURES["dma_floor_launch"]
+
+            def floor():
+                rc = fn(raw.data_ptr(), y.data_ptr(), B * words,
+                        torch.cuda.current_stream().cuda_stream)
+                if rc:
+                    raise RuntimeError(f"dma_floor {label}: CUDA error {rc}")
+            vecs = 2 if label.startswith("whole kernel, 2") else 1
+            key = f"K2 B={B}: {vecs} chunk(s) per lane"
+            out[key] = round(device_us(floor, "dma_floor_kernel"), 2)
+            print(f"{key}: {out[key]} us", file=sys.stderr, flush=True)
+        del raw, y, wants
+    return out
 
 
 def time_pfb(libs: dict, dev) -> dict:
@@ -187,15 +365,27 @@ def time_q1(libs: dict, dev) -> dict:
     return out
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    kernels = set(sys.argv[1:] if argv is None else argv) or {"span", "pfb",
+                                                              "q1"}
+    if not kernels <= {"span", "pfb", "q1"}:
+        raise SystemExit(f"sections: unknown kernels {sorted(kernels)}")
     if not torch.cuda.is_available():
         raise SystemExit("sections: needs an NVIDIA GPU")
     dev = torch.device("cuda", 0)
+    res = {}
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
-        res = time_pfb(_compile(pfb_variants(), "fused_pfb", tmp), dev)
-        res.update(time_q1(_compile(q1_variants(), "fused_nbfm_q1", tmp),
-                           dev))
+        if "span" in kernels:
+            res.update(time_span(
+                _compile(span_variants(False), "fused_nbfm", tmp),
+                _compile(span_variants(True), "fused_nbfm_cplx", tmp), dev))
+        if "pfb" in kernels:
+            res.update(time_pfb(_compile(pfb_variants(), "fused_pfb", tmp),
+                                dev))
+        if "q1" in kernels:
+            res.update(time_q1(_compile(q1_variants(), "fused_nbfm_q1", tmp),
+                               dev))
     print("SECTIONS " + json.dumps(res), flush=True)
     return 0
 

@@ -149,6 +149,93 @@ def test_cplx_kernel_matches_ref(cuda_device, precise, cond, chain):
         assert _snr_db(want, got) > 110.0
 
 
+# -- K1 and K3's warp spans: odd rows, misaligned rows, runtime counts -------
+SPAN_CHAINS = {"K1 butterworth": FILTERS["butterworth"],
+               "K1 chebyshev": FILTERS["chebyshev"],
+               **{f"K3 {c}": o for c, o in CHAINS.items()}}
+
+
+def _span_kernel(raw, chain, cond, precise):
+    """(kernel output, plain output) of K1 or K3 for the chain's taps; the
+    kernel's launch count goes up by one."""
+    pipe = BlockPipeline(config_from_cli_opts({**SPAN_CHAINS[chain],
+                                               "b": "-6"}), device="cpu")
+    taps = pipe.out_fir.host_taps
+    if chain.startswith("K1"):
+        kernel, args = k.fused_nbfm, (taps,)
+        plain = k.fused_nbfm_ref
+    else:
+        kernel, args = k.fused_nbfm_cplx, (pipe.stage_consts(), taps)
+        plain = k.fused_nbfm_cplx_ref
+    n0 = kernel.launches
+    got = kernel(raw, *args, cond, precise)
+    torch.cuda.synchronize()
+    assert kernel.launches == n0 + 1
+    return got, plain(raw, *args, cond, precise)
+
+
+# (bytes per row, rows, byte offset of the first row from a 16-byte
+# boundary): rows of 4·(4k + 1) and 4·(4k + 3) bytes (scalar loads and
+# stores, a span boundary inside a lane's words), one of 5 words (a single
+# span), a 256 KiB + 12 byte row; a row start 4 bytes past a 16-byte
+# boundary; one row; 300 rows.
+SPAN_SHAPES = [(4 * (4 * 300 + 1), 3, 0), (4 * (4 * 300 + 3), 3, 0),
+               (4 * (4 * 1 + 1), 4, 0), (4 * (4 * 65536 + 3), 2, 0),
+               (BUF, 3, 4), (BUF, 1, 0), (BUF, 300, 0)]
+
+
+@pytest.mark.parametrize("n, B, offset", SPAN_SHAPES)
+@pytest.mark.parametrize("chain", sorted(SPAN_CHAINS))
+@pytest.mark.parametrize("cond", ["shift", "normalize"])
+def test_span_kernels_bit_equal_on_any_row(cuda_device, cond, chain, n, B,
+                                           offset):
+    raw = _tone(B, buf=n).reshape(-1)
+    buf = torch.zeros(B * n + 16, dtype=torch.uint8, device=cuda_device)
+    base = (16 - buf.data_ptr() % 16) % 16 + offset
+    buf[base: base + B * n] = raw.to(cuda_device)
+    raw = buf[base: base + B * n].view(B, n)
+    assert raw.data_ptr() % 16 == offset
+    got, want = _span_kernel(raw, chain, cond, True)
+    assert torch.equal(got, want)
+
+
+# counts that are not compiled in: 32 audio taps (D = 31) and 32 taps per
+# stage (a reach of 62 samples), 1 and 5 audio taps, 4 and 17 stage taps;
+# the kernel reads them at run time
+@pytest.mark.parametrize("ntaps, stage_taps", [
+    (32, ()), (1, ()), (5, ()), (32, (32,)), (32, (32, 32)), (2, (4,)),
+    (3, (17, 2)), (1, (1, 1))])
+@pytest.mark.parametrize("precise", [True, False])
+def test_span_kernels_runtime_counts(cuda_device, precise, ntaps, stage_taps):
+    rng = np.random.default_rng(ntaps + 7 * len(stage_taps))
+    taps = rng.uniform(-0.5, 0.5, ntaps)
+    stages = tuple((rng.uniform(-0.3, 0.3, m), tuple(rng.uniform(-1, 1, 2)))
+                   for m in stage_taps)
+    raw = _tone(3, buf=4 * (4 * 300 + 3)).to(cuda_device)
+    for cond in ("shift", "normalize"):
+        if stages:
+            got = k.fused_nbfm_cplx(raw, stages, taps, cond, precise)
+            want = k.fused_nbfm_cplx_ref(raw, stages, taps, cond, precise)
+        else:
+            got = k.fused_nbfm(raw, taps, cond, precise)
+            want = k.fused_nbfm_ref(raw, taps, cond, precise)
+        if precise:
+            assert torch.equal(got, want), cond
+        else:
+            assert _snr_db(want, got) > 110.0, cond
+
+
+def test_dma_floor_on_odd_and_misaligned_rows(cuda_device):
+    rng = np.random.default_rng(4)
+    for n, B, offset in SPAN_SHAPES:
+        buf = torch.zeros(B * n + 16, dtype=torch.uint8, device=cuda_device)
+        base = (16 - buf.data_ptr() % 16) % 16 + offset
+        buf[base: base + B * n] = torch.from_numpy(
+            rng.integers(0, 256, B * n, np.uint8)).to(cuda_device)
+        raw = buf[base: base + B * n].view(B, n)
+        assert torch.equal(k.dma_floor(raw), k.dma_floor_ref(raw)), (n, B)
+
+
 # one tile; several tiles; several and a remainder tile of 64 step pairs
 # (n/4 stays a multiple of 128: on other lengths the plain version's flat
 # affine scan is itself below the 110 dB bar against a float64 tracker)
