@@ -162,12 +162,21 @@ Phases, each fatal on failure (exit code != 0, no result line):
    the d = 1 line, efficiency 1.0); and
    ``bench_regression --configs nbfm,bank4,wbfm --repeats 1 --warmup 0
    --blocks 20`` (three CLI processes, each certified and replayed as a
-   CUDA graph; 20 blocks give wbfm one 1.0 s block).
+   CUDA graph; 20 blocks give wbfm one 1.0 s block);
+7. the benchmark, ``python -m demodulator_tpu_torch.bench --matrix`` in its
+   own process: rc 0, its 14 matrix rows and 3 end-to-end rows each
+   ``correct`` (its kernel held to its plain version at the row's shape,
+   its first step to the plain chain's, one replay of its timed graph to
+   the same steps run eagerly), with a positive value, and, timed on the
+   card, an ``achieved_frac`` at most 1.05 (the end-to-end rows are timed
+   by the host clock and have none), printed as ``BENCH {json}`` lines,
+   then its headline.
 
 The line before the last is a JSON object with the kernels' launches
 (and ``sharded_launches``, phase 4e's run of the same mode, and
 ``at_shard_shape``, phase 5's numbers at 2 blocks a call), errors, times
-and bounds; the last line is ``{"ok": true, "device":
+and bounds, K1-K6 (K2 runs on no path of the CLI: its launches are
+phase 7's memory-floor row's, ``on_main_path`` false); the last line is ``{"ok": true, "device":
 {...}}``.  Imports only the port, torch and numpy.
 """
 from __future__ import annotations
@@ -208,6 +217,12 @@ from demodulator_tpu_torch.runtime.stream import (BankStreamProcessor,
                                                   ShardedStreamProcessor,
                                                   StreamProcessor,
                                                   WbfmStreamProcessor)
+from demodulator_tpu_torch.tools.bars import (BAR_ANGLE, BAR_BANK_DB,
+                                              BAR_KERNEL_DB, BAR_OFFSET,
+                                              wrapped)
+from demodulator_tpu_torch.tools.roofline import (CORRECT_IQ_OPS, PEAK_BYTES,
+                                                  PEAK_FP32, bound, demod_ops,
+                                                  pfb_ops, stage_ops)
 
 REPO = Path(__file__).resolve().parent
 FS = 96000.0
@@ -218,9 +233,7 @@ TRACE_BLOCKS = 128       # phase 4e's traced sharded runs
 CAPTURE_BLOCKS = 1024    # 256 MiB
 TAIL_BYTES = 100
 CLI_ARGS = ["-S", "96000", "-l", "12500"]
-BAR_KERNEL_DB = 110.0    # fused chains vs their twins (tests/test_fused.py)
 BAR_ORACLE_DB = 60.0     # acceptance bar (BASELINE.md)
-BAR_OFFSET = 1e-3        # correctIq offsets (tests/test_fused.py:209-210)
 CSRC = "demodulator_tpu_torch/csrc/"
 PALLAS = "demodulator_tpu/ops/pallas/fused_nbfm.py:"
 # kernel -> (source, the TPU kernel it replaces)
@@ -231,13 +244,7 @@ SOURCES = {"fused_nbfm": (CSRC + "fused_nbfm.cu", PALLAS + "214"),
            "fused_nbfm_q1_seq": (CSRC + "fused_nbfm_q1.cu", PALLAS + "739"),
            "fused_pfb": (CSRC + "fused_pfb.cu",
                          "demodulator_tpu/ops/pallas/fused_pfb.py:196")}
-# the card's data-sheet peaks (H100 SXM, 700 W): HBM bytes/s and float32
-# operations/s outside the tensor cores
-PEAK_BYTES = 3.35e12
-PEAK_FP32 = 67e12
 CR = 192000.0            # channel rate of both bank runs
-BAR_BANK_DB = 80.0       # the PFB front (tests/test_fused_pfb.py:55)
-BAR_ANGLE = 0.01         # rad, angle-wrapped (tests/test_fused_pfb.py:52)
 BAR_BANK_ATOL = 1e-4     # tests/test_fused_pfb.py:107
 # K6's channel counts in phase 3: tests/test_torch_cuda.py
 # test_pfb_kernel_matches_ref
@@ -458,9 +465,10 @@ def phase_kernels(dev) -> dict:
                 key = ("default", precise)
                 errs[key] = max(errs[key], e)
     phase_kernels_odd_rows(rng, dev)
-    got = dma_floor(noise).cpu()
-    check(torch.equal(got, dma_floor_ref(noise).cpu()),
-          "dma_floor differs from dma_floor_ref")
+    got, want = dma_floor(noise), dma_floor_ref(noise)
+    errs["dma_floor"] = float((got - want).abs().max())
+    check(torch.equal(got, want), "dma_floor differs from dma_floor_ref "
+          f"by {errs['dma_floor']:.3g}")
     say("dma_floor: equal to dma_floor_ref")
     errs.update(phase_kernels_cplx_q1(pieces, dev))
     errs["pfb"] = phase_kernels_pfb(dev)
@@ -522,15 +530,6 @@ def bank_iq(fs: float, offsets, carriers, start: int, n: int, seed: int,
 def bank_offsets(nch: int) -> list:
     """The --bank list of a run: every channel of the grid, (c - nch/2)·CR."""
     return [(c - nch // 2) * CR for c in range(nch)]
-
-
-def wrapped(want: torch.Tensor, got: torch.Tensor) -> tuple:
-    """(max |err|, SNR dB) of the angle-wrapped difference."""
-    w, g = want.double().cpu(), got.double().cpu()
-    e = torch.remainder(g - w + math.pi, 2 * math.pi) - math.pi
-    p = float((w ** 2).mean())
-    m = float((e ** 2).mean())
-    return float(e.abs().max()), math.inf if m == 0 else 10 * math.log10(p / m)
 
 
 def phase_kernels_pfb(dev) -> float:
@@ -2100,30 +2099,6 @@ def device_us(fn, kernel: str, calls: int = 20) -> tuple:
             sum(e.count for e in evts) / calls)
 
 
-# Operations counted for the bounds (float32, outside the tensor cores),
-# per output word of the NBFM kernels: conditioning of 4 bytes (8), the
-# conjugate product (6), atan2 (abs x2, max, min, division, z*z, Horner
-# 2 per term after the first, z*z2*p and the add, 3 quadrant fixups: 26
-# precise, 20 fast), NaN -> 0 (1), the audio FIR (2 per tap - 1); a complex
-# FIR stage adds 2·(4·taps + 2) per word (2 complex samples, both lanes,
-# the constant), correctIq 12 per word (4 offset subtractions and the two
-# steps' recurrence on both lanes).  The PFB front counts, per complex
-# sample, 4·P for the branch filter (both lanes) and 5·log2 C for the DFT
-# as an FFT, and per output 6 + 20 + 1 for the fast discriminator.
-def demod_ops(precise: bool, ntaps: int) -> int:
-    return 8 + 6 + (26 if precise else 20) + 1 + 2 * ntaps - 1
-
-
-def pfb_ops(n: int, C: int, P: int) -> float:
-    return n * (4 * P + 5 * math.log2(C)) + n / 2 * 27
-
-
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
-    """(least time in ms, what bounds it) on the data-sheet peaks."""
-    t_b, t_o = nbytes / PEAK_BYTES, ops / PEAK_FP32
-    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
-
-
 def run_cases(out: dict, tag, cases: dict, gbytes: float, label: str) -> None:
     """Time each case (CUDA events) and, for a kernel, its device time and
     its bound; store them in ``out`` under (name, tag[, key])."""
@@ -2201,8 +2176,8 @@ def phase_timings(dev, smi: str) -> dict:
     nt = len(taps)
     st1 = pipe_of(["-L", "12500"]).stage_consts()
     st2 = pipe_of(["-q", "2", "-L", "12500"]).stage_consts()
-    cplx = [2 * (4 * len(t) + 2) for t, _ in st2]   # per word, per stage
-    cplx1 = 2 * (4 * len(st1[0][0]) + 2)
+    cplx = [stage_ops(len(t)) for t, _ in st2]   # per word, per stage
+    cplx1 = stage_ops(len(st1[0][0]))
     esr = float(pipe_of(["-q", "1"]).esr)
     off_in = torch.tensor([127.3, 126.8], device=dev)
     rng = np.random.default_rng(5)
@@ -2247,12 +2222,12 @@ def phase_timings(dev, smi: str) -> dict:
                 None, 0, 0),
             "fused_nbfm_q1 precise": (
                 lambda: fused_nbfm_q1(raw, off_in, taps, esr), "q1_",
-                nbytes, (k1p + 12) * words),
+                nbytes, (k1p + CORRECT_IQ_OPS) * words),
             "fused_nbfm_q1_ref precise": (
                 lambda: fused_nbfm_q1_ref(raw, off_in, taps, esr), None, 0, 0),
             "fused_nbfm_q1_seq precise": (
                 lambda: fused_nbfm_q1_seq(raw, off_in, taps, esr),
-                "q1_seq_kernel", nbytes, (k1p + 12) * words),
+                "q1_seq_kernel", nbytes, (k1p + CORRECT_IQ_OPS) * words),
             "fused_nbfm_q1_seq_ref precise": (
                 lambda: fused_nbfm_q1_seq_ref(raw, off_in, taps, esr), None,
                 0, 0),
@@ -2390,6 +2365,49 @@ def phase_tools(dev, smi: str) -> None:
         f"as above, in {time.perf_counter() - t0:.1f} s")
 
 
+def phase_bench(smi: str) -> dict:
+    """Phase 7: the port's benchmark, ``python -m demodulator_tpu_torch.bench
+    --matrix`` in its own process (its launch counts start at 0): rc 0,
+    every row of its file correct, with a positive value, each row timed
+    on the card with an achieved_frac at most 1.05 (the end-to-end rows,
+    timed by the host clock, with none), each printed as a ``BENCH`` line,
+    and the headline last on its stdout.  → {row name: row}."""
+    from demodulator_tpu_torch import bench
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=REPO) as d:
+        out = Path(d) / "bench_matrix.json"
+        r = subprocess.run([sys.executable, "-m", "demodulator_tpu_torch.bench",
+                            "--matrix", "--out", str(out)], cwd=REPO,
+                           capture_output=True, text=True, timeout=900,
+                           stdin=subprocess.DEVNULL)
+        check(r.returncode == 0, f"bench --matrix: rc {r.returncode}:\n"
+              f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+        rows = json.loads(out.read_text())
+    names = [n for n, _ in bench.MATRIX] + [n for n, _ in bench.E2E]
+    check([row["metric"] for row in rows]
+          == [f"iq_throughput_{n}" for n in names],
+          f"bench: rows {[row['metric'] for row in rows]}")
+    e2e = {f"iq_throughput_{n}" for n, _ in bench.E2E}
+    for row in rows:
+        say("BENCH " + json.dumps(row))
+        frac = row.get("roofline", {}).get("achieved_frac")
+        # a row timed on the card has a share of its bound; an end-to-end
+        # row, timed by the host clock, none
+        check(row.get("correct") is True and row.get("value", 0) > 0
+              and (frac is None if row["metric"] in e2e
+                   else frac is not None and 0 < frac <= bench.BAR_FRAC),
+              f"bench {row['metric']}: correct {row.get('correct')}, value "
+              f"{row.get('value')}, achieved_frac {frac}, error "
+              f"{row.get('error')}")
+    line = json.loads(r.stdout.splitlines()[-1])
+    say("BENCH " + json.dumps(line))
+    check(line["metric"] == bench.HEADLINE and line["value"] > 0,
+          f"bench: headline {line}")
+    say(f"bench --matrix on {smi}: {len(rows)} rows, each correct, in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {row["metric"][len("iq_throughput_"):]: row for row in rows}
+
+
 def shard_shape_entry(times: dict, case: str, plain: str) -> dict | None:
     """The kernels JSON's numbers at SHARD_BLOCKS blocks a call."""
     B = SHARD_BLOCKS
@@ -2455,14 +2473,9 @@ def main() -> int:
         "validate_pfb_hw, bench_scaling, bench_regression) in this process; "
         f"card: {smi}")
     phase_tools(dev, smi)
-    say("roofline: " + json.dumps({
-        "name": "dma_floor", "route": "cuda",
-        "source": SOURCES["dma_floor"][0],
-        "replaces": SOURCES["dma_floor"][1], "ms": times[("dma_floor", NB)],
-        "ms_256_blocks": times[("dma_floor", 256)],
-        "plain_ms": times[("dma_floor_ref", NB)],
-        "bound_ms": times[("dma_floor", NB, "bound")][0]}))
-
+    say("== phase 7: the benchmark (python -m demodulator_tpu_torch.bench "
+        f"--matrix) in its own process; card: {smi}")
+    bench_rows = phase_bench(smi)
     say(smi)
     kernels = []
     # (name, kernel, CLI run whose launches count (None: on no path),
@@ -2514,6 +2527,23 @@ def main() -> int:
             # the unsharded shape on the sharded path, or none)
             "at_shard_shape": shard_shape_entry(times, case, plain),
         })
+    # K2 runs on no path of the CLI, in either package: its launches are
+    # the bench's memory-floor row's (phase 7), its error phase 3's
+    floor = bench_rows["hbm_memcpy_floor"]
+    check(floor["launches"].get("dma_floor", 0) > 0,
+          "bench hbm_memcpy_floor: no dma_floor launch")
+    b_ms, b_by = times[("dma_floor", NB, "bound")]
+    kernels.insert(2, {
+        "name": "dma_floor", "route": "cuda",
+        "source": SOURCES["dma_floor"][0],
+        "replaces": SOURCES["dma_floor"][1],
+        "launches": floor["launches"]["dma_floor"], "on_main_path": False,
+        "path": "bench hbm_memcpy_floor", "max_abs_err": errs["dma_floor"],
+        "ms": times[("dma_floor", NB)],
+        "ms_256_blocks": times[("dma_floor", 256)],
+        "plain_ms": times[("dma_floor_ref", NB)], "bound_ms": b_ms,
+        "bound_by": b_by, "library_ms": None,
+        "sharded_launches": None, "at_shard_shape": None})
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -440,8 +440,7 @@ class BlockPipeline:
             return self(state, raw)
         if raw.is_cuda and self.kernel_path() != "plain":
             return self.fused_call(state, raw)
-        state, cond, _ = self._correct_iq_blocks(state, raw)
-        return state, self.post_condition(cond, None)
+        return self.plain_call(state, raw)
 
     def _correct_iq_blocks(self, state: PipelineState, raw: torch.Tensor):
         """correctIq over blocks [B, n] in stream order → (state after the
@@ -477,6 +476,16 @@ class BlockPipeline:
             return self.process_blocks(state, raw)
         if raw.is_cuda and self.kernel_path() != "plain":
             return self.fused_call(state, raw)
+        return self.plain_call(state, raw)
+
+    def plain_call(self, state: PipelineState, raw: torch.Tensor):
+        """The plain chain as torch ops on ``raw``'s device, whatever the
+        device: uint8 [..., n] → (state, audio [..., n/4]) of a
+        demodulating mode (-q 1: blocks [B, n] in stream order, the
+        offset carried), the counterpart a kernel path is held to."""
+        if self.kind == 1:
+            state, cond, _ = self._correct_iq_blocks(state, raw)
+            return state, self.post_condition(cond, None)
         x, dc_over = self._condition(raw)
         return state, self.post_condition(x, dc_over)
 

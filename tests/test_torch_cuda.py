@@ -1374,6 +1374,26 @@ def test_bench_scaling_on_card(cuda_device, capsys):
             "msps", "msps_same_work_1dev", "step_fixed_ms", "msps_e2e"))
 
 
+@pytest.mark.parametrize("name, B, kernel", [
+    ("nbfm_q0_fused_fast", 16, "fused_nbfm"),
+    ("hbm_memcpy_floor", 256, "dma_floor")])
+def test_bench_row_on_card(cuda_device, name, B, kernel):
+    """A row of the port's bench (python -m demodulator_tpu_torch.bench) at
+    its loop lengths: its kernel held to its plain version, one launch a
+    step, a replayed CUDA graph, and a time no shorter than the card's
+    bound allows (achieved_frac <= 1.05)."""
+    from demodulator_tpu_torch import bench
+    sz = bench.FULL._replace(B=B, reps=2)
+    info = {"device": torch.cuda.get_device_name(0), "device_count": 1,
+            "power_limit": None}
+    row = bench.measure(name, dict(bench.MATRIX)[name], cuda_device, sz,
+                        info, sz.lengths)
+    assert row["correct"] and row["value"] > 0
+    assert row["timing"] == "cuda graph"
+    assert row["launches"] == {kernel: row["steps"]}
+    assert 0 < row["roofline"]["achieved_frac"] <= bench.BAR_FRAC
+
+
 # -- the captured sharded steps (ShardedPipeline.capture, ChanSharded.capture)
 from demodulator_tpu_torch.parallel.mesh import make_demod_mesh  # noqa: E402
 
