@@ -25,6 +25,12 @@ Phases, each fatal on failure (exit code != 0, no result line):
      at 16 and 2 blocks, on the tone and on noise: equal to their plain
      versions, or, where a float64 dot sums in another order than
      cuBLAS's, within 2 float32 ULP and > 140 dB (the reason printed);
+     P3 and P4 also as the model launches them (``fused_call``: K3, then
+     the patch as its programmatic dependent, nothing between) at 2, 16
+     and 256 blocks, tone and noise, precise and fast, at that bar against
+     the plain version on a second K3 run's output, and that step captured
+     as a CUDA graph and replayed 50 times, each replay equal to the eager
+     step;
    - fused_pfb (K6) for every C of tests/test_torch_cuda.py (2 to 256,
      radix and direct FFT factors, the primes 17 and 251 on the direct
      DFT) on two streamed 0.25 s blocks of an on-grid FM bank capture and
@@ -163,6 +169,11 @@ Phases, each fatal on failure (exit code != 0, no result line):
    blocks beside their plain versions, with their bounds from the
    geometry (``nbfm_patch.patch_work``); K2's library call, one
    ``sum(-1, dtype=torch.float32)`` over its [B, rows, 128, 4] bytes;
+5b. P3 and P4 alone and overlapped with K3 (-L, -q 2, -q 2 -L, precise
+   and fast, 16 and 256 blocks): in CUDA graphs of 20 calls, K3 alone,
+   the step (K3 then the patch) and the patch alone, the step less K3;
+   the patch's device time alone and in a replayed step (its wait for K3
+   included); the launch floor, a one-element fill in a graph;
 6. the tools (``demodulator_tpu_torch/tools/``) in this process:
    ``validate_pfb_hw`` at C = 4, 8, 16, 32, 64 (K6 against its plain
    front on two streamed blocks, held to phase 3's bars, and its time
@@ -182,19 +193,23 @@ Phases, each fatal on failure (exit code != 0, no result line):
    card, an ``achieved_frac`` at most 1.05 (the end-to-end rows are timed
    by the host clock and have none), printed as ``BENCH {json}`` lines,
    then its headline.
+   The K3 rows' step less K3 alone (phase 5b's, B = 256, fast): one
+   ``K3_ROWS {json}`` line.
 
 The line before the last is a JSON object with the kernels' launches
 (and ``sharded_launches``, phase 4e's run of the same mode, and
 ``at_shard_shape``, phase 5's numbers at 2 blocks a call), errors, times
 and bounds, K1-K6 (K2 runs on no path of the CLI: its launches are
 phase 7's memory-floor row's, ``on_main_path`` false) and the patch
-kernels P1-P4 (no TPU kernel: ``replaces`` names the JAX XLA code); the
+kernels P1-P4 (no TPU kernel: ``replaces`` names the JAX XLA code; P3's
+and P4's also ``k3_step``, phase 5b's numbers, and ``launch_floor``); the
 last line is ``{"ok": true, "device":
 {...}}``.  Imports only the port, torch and numpy.
 """
 from __future__ import annotations
 
 import contextlib
+import gc
 import hashlib
 import io
 import json
@@ -318,6 +333,7 @@ PATCHES = ("patch_fused", "patch_q1", "patch_cplx1", "patch_cplx2")
 PATCH_FNS = (patch_fused, patch_q1, patch_cplx1, patch_cplx2)
 BAR_PATCH_DB = 140.0     # a patch whose float64 dot differs from cuBLAS's
 BAR_PATCH_ULP = 2
+PATCH_REPLAYS = 50       # graph replays of K3 + P3 / P4, each compared
 # phase 3's patch cases: name -> (CLI options, conditioning label); each
 # precise and fast
 PATCH_CASES = {
@@ -518,6 +534,7 @@ def phase_kernels(dev) -> dict:
     say("dma_floor: equal to dma_floor_ref")
     errs.update(phase_kernels_cplx_q1(pieces, dev))
     errs.update(phase_kernels_patch(pieces, dev))
+    phase_kernels_patch_launch(pieces, dev)
     errs["pfb"] = phase_kernels_pfb(dev)
     return errs
 
@@ -620,6 +637,90 @@ def phase_kernels_patch(pieces: dict, dev) -> dict:
                    "within the bar where a float64 dot rounds to another "
                    "float32 than cuBLAS's sum: " + "; ".join(notes)))
     return errs
+
+
+def graph_of(fn, n: int = 1):
+    """``n`` calls of ``fn()`` captured as one CUDA graph on a side
+    stream, after one warm-up there → (graph, the last captured call's
+    output).  Captured as ``runtime/graphs.py`` captures (``capture_begin``
+    with the collector off), not through ``torch.cuda.graph``, whose entry
+    synchronizes, collects and empties the caches each time."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    collecting = gc.isenabled()
+    with torch.cuda.stream(side):
+        fn()
+        gc.disable()
+        try:
+            graph.capture_begin(capture_error_mode="global")
+            try:
+                for _ in range(n):
+                    out = fn()
+            except BaseException:
+                with contextlib.suppress(Exception):
+                    graph.capture_end()
+                raise
+            graph.capture_end()
+        finally:
+            if collecting:
+                gc.enable()
+    torch.cuda.current_stream().wait_stream(side)
+    return graph, out
+
+
+def phase_kernels_patch_launch(pieces: dict, dev) -> None:
+    """Phase 3, P3 and P4 as the model launches them: ``fused_call`` (K3,
+    then the patch as its programmatic dependent, nothing between) on
+    SHARD_BLOCKS, NB and 256 blocks of the tone and the noise, precise and
+    fast, against the plain version on the same K3 output (a second K3
+    run) at the bar above; then that step captured as a CUDA graph and
+    replayed PATCH_REPLAYS times, each replay equal to the eager step (a
+    store before K3's completion would leave K3's value in a patched row,
+    on some runs only)."""
+    for label, (extra, cond) in PATCH_CASES.items():
+        if not label.startswith("patch_cplx"):
+            continue
+        for fast in (False, True):
+            pipe = card_pipe(extra, fast, dev)
+            _, ref, main = patch_of(pipe)
+            state = pipe.init_state()
+            kind = "fast" if fast else "precise"
+            notes = []
+            for blocks in (SHARD_BLOCKS, NB, 256):
+                for fname, piece in pieces.items():
+                    raw = piece.repeat(-(-blocks // NB), 1)[:blocks]
+                    got = pipe.fused_call(state, raw)[1]
+                    base, _ = main(raw)
+                    want = ref(raw, base.clone(), None)
+                    check(torch.equal(got != base, want != base),
+                          f"{label} {kind} as launched: rows written differ "
+                          f"on the {fname} at B={blocks}")
+                    if not torch.equal(got, want):
+                        u = ulps(got, want)
+                        s_db = snr_db(want.cpu().numpy(), got.cpu().numpy())
+                        notes.append(f"B={blocks} {fname}: {u} ULP, "
+                                     f"{s_db:.1f} dB")
+                        check(u <= BAR_PATCH_ULP and s_db > BAR_PATCH_DB,
+                              f"{label} {kind} as launched B={blocks} "
+                              f"{fname}: {u} ULP, {s_db:.1f} dB")
+                    graph, out = graph_of(
+                        lambda: pipe.fused_call(state, raw)[1])
+                    for rep in range(PATCH_REPLAYS):
+                        out.fill_(float("nan"))
+                        graph.replay()
+                        check(torch.equal(out, got),
+                              f"{label} {kind} B={blocks} {fname}: replay "
+                              f"{rep} of the captured K3 + patch differs "
+                              f"from the eager step")
+                    del graph, out
+            say(f"{label} {kind} as the model launches it (K3, then the "
+                "patch as its programmatic dependent): "
+                + ("equal to its plain version" if not notes else
+                   "within the bar: " + "; ".join(notes))
+                + f" at B={SHARD_BLOCKS}, {NB} and 256 on the tone and the "
+                f"noise, and each of {PATCH_REPLAYS} graph replays equal "
+                "to the eager step")
 
 
 def phase_kernels_odd_rows(rng, dev) -> None:
@@ -2370,6 +2471,125 @@ def patch_cases(out: dict, raw: torch.Tensor, dev) -> dict:
     return cases
 
 
+# phase 5b: the K3 steps, each its K3 and its patch (P3, P4) as the CLI
+# (precise) and the bench's rows (fast) run them: name -> (CLI options,
+# fast); bench row -> its step here
+K3_STEPS = {"-L": (["-L", "12500"], False),
+            "-L fast": (["-L", "12500"], True),
+            "-q 2": (["-q", "2"], False),
+            "-q 2 fast": (["-q", "2"], True),
+            "-q 2 -L": (["-q", "2", "-L", "12500"], False),
+            "-q 2 -L fast": (["-q", "2", "-L", "12500"], True)}
+K3_BENCH_ROWS = {"nbfm_inlpf_fused": "-L fast",
+                 "nbfm_q2_dcblock_fused": "-q 2 fast",
+                 "nbfm_q2_inlpf_fused": "-q 2 -L fast"}
+GRAPH_CALLS = 20
+
+
+def graph_us(fn, calls: int = GRAPH_CALLS, reps: int = 20) -> float:
+    """µs per call of ``fn`` in one CUDA graph of ``calls`` calls: CUDA
+    events around a replay, the median of ``reps`` replays after one (no
+    host launch between the calls, as in the CLI's and the bench's
+    captured steps)."""
+    graph, _ = graph_of(fn, calls)
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) * 1e3 / calls)
+    del graph
+    return float(np.median(times))
+
+
+def k3_lead_us(replay, kernel: str, reps: int = 10) -> float | None:
+    """From torch.profiler's device events of ``reps`` replays of a
+    captured K3 step (each synchronized): the median of K3's end less the
+    patch kernel's start, µs; above 0 where the patch started while K3 ran
+    (the programmatic edge kept by the capture), below where it waited
+    for K3's end.  None when the profiler records no pair."""
+    from torch.profiler import ProfilerActivity
+    replay()
+    torch.cuda.synchronize()
+    with warm_profile(ProfilerActivity.CUDA) as prof:
+        for _ in range(reps):
+            replay()
+            torch.cuda.synchronize()
+    events = sorted((e for e in prof.events()
+                     if str(e.device_type).endswith("CUDA")),
+                    key=lambda e: e.time_range.start)
+    k3 = [e for e in events if "fused_nbfm_cplx_kernel" in e.name]
+    patch = [e for e in events if kernel in e.name]
+    if not k3 or len(k3) != len(patch):
+        return None
+    return float(np.median([a.time_range.end - b.time_range.start
+                            for a, b in zip(k3, patch)]))
+
+
+def phase_patch_overlap(out: dict, dev, smi: str) -> None:
+    """Phase 5b: P3 and P4 alone and as the model runs them.  In CUDA
+    graphs of GRAPH_CALLS calls: K3 alone, the step (K3, then the patch as
+    its programmatic dependent) and the patch alone (after a patch, which
+    triggers nothing: no overlap); the step less K3 is what the patch adds
+    to a step.  Device times from torch.profiler: the patch alone, and in
+    a replayed step (which includes its wait for K3), and K3's end less
+    the patch's start there (above 0: the patch started while K3 ran, the
+    programmatic edge kept in the graph).  The launch floor:
+    a one-element fill in a graph (µs a node) and its device time.  →
+    ``out[("k3 step", name, B)]``, ``out["launch floor"]``."""
+    say("== phase 5b: P3 and P4 alone and overlapped with K3, in CUDA "
+        f"graphs of {GRAPH_CALLS} calls (CUDA events, median of 20 "
+        "replays) and by torch.profiler; card: " + smi)
+    one = torch.zeros(1, device=dev)
+    floor = graph_us(lambda: one.fill_(1.0))
+    floor_dev, _ = device_us(lambda: one.fill_(1.0), "FillFunctor")
+    out["launch floor"] = {"graph_us": floor, "device_us": floor_dev}
+    say(f"launch floor: a one-element fill {floor:.2f} us a graph node, "
+        f"device time {floor_dev:.2f} us")
+    rng = np.random.default_rng(5)
+    piece = torch.from_numpy(tone_iq(NB * BB, 0, rng).reshape(NB, BB)).to(dev)
+    for B in (NB, 256):
+        raw = piece.repeat(B // NB, 1)
+        for name, (extra, fast) in K3_STEPS.items():
+            pipe = card_pipe(extra, fast, dev)
+            patch, _, main = patch_of(pipe)
+            kernel = f"{pipe.kernel_path().replace('cplx', 'patch_cplx')}_kernel"
+            state = pipe.init_state()
+            audio, _ = main(raw)
+            step = lambda: pipe.fused_call(state, raw)   # noqa: E731
+            row = {"k3_us": graph_us(lambda: main(raw)),
+                   "step_us": graph_us(step),
+                   "alone_us": graph_us(lambda: patch(raw, audio, None))}
+            row["step_minus_k3_us"] = row["step_us"] - row["k3_us"]
+            row["device_alone_us"], _ = device_us(
+                lambda: patch(raw, audio, None), kernel)
+            graph, _ = graph_of(step)
+            for _ in range(3):      # the profiler can lose a replay's records
+                row["device_in_step_us"], per = device_us(graph.replay, kernel)
+                if row["device_in_step_us"] is not None:
+                    break
+            row["k3_end_minus_patch_start_us"] = k3_lead_us(graph.replay,
+                                                            kernel)
+            del graph
+            # one launch a step (fewer: a record the profiler dropped)
+            check(per <= 1, f"{name}: {per:g} patch launches a replayed step")
+            out[("k3 step", name, B)] = row
+            us = {k: "not measured" if v is None else f"{v:.2f} us"
+                  for k, v in row.items()}
+            say(f"B={B:3d} K3 + {kernel[:-7]} {name:13s}: K3 {us['k3_us']}, "
+                f"step {us['step_us']} (step - K3 {us['step_minus_k3_us']}), "
+                f"patch alone {us['alone_us']} a node; device: alone "
+                f"{us['device_alone_us']}, in the step "
+                f"{us['device_in_step_us']} (its wait for K3 included); "
+                f"K3's end less the patch's start in a replay "
+                f"{us['k3_end_minus_patch_start_us']}")
+
+
 def phase_timings(dev, smi: str) -> dict:
     say("== phase 5: timings per call, as the caller sees them (CUDA events "
         "around 10 back-to-back calls, median of 20 runs, or 5 single "
@@ -2470,6 +2690,7 @@ def phase_timings(dev, smi: str) -> dict:
                     f"dma_floor's ({gbytes / (us / 1e6):.1f} GB/s against "
                     f"its {gbytes / (floor / 1e6):.1f})")
         del raw
+    phase_patch_overlap(out, dev, smi)
     floor_us = out[("dma_floor", NB, "device_us")]
     floor_gbs = None if floor_us is None else 2 * NB * BB / 1e3 / floor_us
 
@@ -2694,6 +2915,15 @@ def main() -> int:
     say("== phase 7: the benchmark (python -m demodulator_tpu_torch.bench "
         f"--matrix) in its own process; card: {smi}")
     bench_rows = phase_bench(smi)
+    k3_rows = {}
+    for row, name in K3_BENCH_ROWS.items():
+        step_us = bench_rows[row]["step_s"] * 1e6
+        k3_us = times[("k3 step", name, 256)]["k3_us"]
+        k3_rows[row] = {"step_us": step_us, "k3_us": k3_us,
+                        "step_minus_k3_us": step_us - k3_us}
+        say(f"bench {row}: step {step_us:.2f} us, K3 alone {k3_us:.2f} us "
+            f"(phase 5b, {name}, B=256): step - K3 {step_us - k3_us:.2f} us")
+    say("K3_ROWS " + json.dumps({"card": smi, "rows": k3_rows}))
     say(smi)
     kernels = []
     # (name, kernel, CLI run whose launches count (None: on no path),
@@ -2769,6 +2999,12 @@ def main() -> int:
             # the unsharded shape on the sharded path, or none)
             "at_shard_shape": shard_shape_entry(times, case, plain),
         })
+        if kernel.startswith("patch_cplx"):
+            # phase 5b: alone and in its K3 step, at NB and 256 blocks
+            step = name[name.index("[") + 1:-1].replace(", ", " ")
+            kernels[-1]["k3_step"] = {
+                str(B): times[("k3 step", step, B)] for B in (NB, 256)}
+            kernels[-1]["launch_floor"] = times["launch floor"]
     # K2 runs on no path of the CLI, in either package: its launches are
     # the bench's memory-floor row's (phase 7), its error phase 3's
     floor = bench_rows["hbm_memcpy_floor"]

@@ -17,7 +17,9 @@
 // (ops/cuda/fused_nbfm.py, fused_nbfm_cplx_ref) sums in the same order.
 // One stage serves -L and -q 2, two serve -q 2 -L (DC block, then the input
 // lowpass).  The caller patches the head and tail rows in float64
-// (models/nbfm.py, BlockPipeline._fused_inlpf / _fused_q2l).
+// (models/nbfm.py, BlockPipeline._fused_inlpf / _fused_q2l) with P3 or P4,
+// launched as programmatic dependents of this kernel, which triggers them
+// at entry; K1 (the same body, fused_nbfm.cu) does not.
 //
 // What bounds it: the bytes are K1's (fused_nbfm.cu), 4 in and 4 out per
 // output, and a stage adds only 8 * (Dc + 1) multiplies and adds per word
@@ -40,6 +42,11 @@ using namespace nbfm;
 
 template <int kT, int kNS, int kS0, int kS1, bool kPrecise, bool kNormalize>
 __global__ void __launch_bounds__(kThreads) fused_nbfm_cplx_kernel(SpanArgs a) {
+  // Let the float64 patch launched after it (P3 or P4, nbfm_patch.cu, a
+  // programmatic dependent) start now: it reads only the raw bytes and
+  // its constants until its griddepcontrol.wait, which waits for this
+  // grid's completion before it stores into the output.
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
   nbfm_span<kT, kNS, kS0, kS1, kPrecise, kNormalize>(a);
 }
 

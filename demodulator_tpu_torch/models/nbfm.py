@@ -38,8 +38,9 @@ from ..design.biquad import BUTTER_HP, design_sos
 from ..ops import conditioning as cond_ops
 from ..ops.cuda.fused_nbfm import (MAX_CPLX_TAPS, MAX_TAPS, fused_nbfm,
                                    fused_nbfm_cplx, fused_nbfm_q1)
-from ..ops.cuda.nbfm_patch import (inlpf_geometry, patch_cplx1, patch_cplx2,
-                                   patch_fused, patch_q1, q2l_geometry)
+from ..ops.cuda.nbfm_patch import (inlpf_geometry, packed_consts,
+                                   patch_cplx1, patch_cplx2, patch_fused,
+                                   patch_q1, q2l_geometry)
 from ..ops.demod import fm_demod
 from ..ops.fir import extract_cplx_fir, extract_real_fir
 from ..ops.fir_apply import CplxFir, RealFir
@@ -144,6 +145,11 @@ class BlockPipeline:
                               if self.in_fir is not None else dc_overrun)
         self.out_fir = RealFir.from_numpy(op.taps, op.head, op.H, op.Wh,
                                           op.D, op.y_coup, **fir_kw)
+        if (self.device.type == "cuda" and self.fused_eligible
+                and self.kernel_path() in ("cplx1", "cplx2")):
+            # P3's or P4's constants in one buffer on the card, packed once
+            # here (a chunk step, and its capture, copies nothing)
+            packed_consts(self.out_fir, self._cplx_stages())
 
     # -- kernel-path geometry ----------------------------------------------
     def _cplx_stages(self) -> list:

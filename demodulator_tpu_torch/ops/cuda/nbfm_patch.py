@@ -23,15 +23,23 @@ current stream, after the main kernel there, adds one to its ``launches``
 count and returns; a failed build or launch raises, and so does a device,
 dtype, shape or contiguity it does not take.  Given CPU tensors it runs
 its plain version (``*_ref``): the torch ops the kernel follows operation
-for operation.  Nothing falls back.  The constants are the filters'
-device buffers (``RealFir``, ``CplxFir``) and :func:`q1_head_consts`,
-passed by pointer: a launch copies nothing from the host, so a CUDA graph
-captures it.
+for operation.  Nothing falls back.
+
+P1 and P2 read the filters' device buffers (``RealFir``) and
+:func:`q1_head_consts` by pointer.  P3 and P4 are launched as
+programmatic dependents of K3 (their CTAs start while K3 runs and wait
+for it only to store), and read their constants from one buffer a path,
+:func:`packed_consts`, packed on the filters' device once (the pipeline
+packs them when it is built) and staged into each CTA's shared memory by
+one bulk copy.  Either way a launch copies nothing from the host, so a
+CUDA graph captures it.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import weakref
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -42,11 +50,14 @@ from . import build
 from .fused_nbfm import _check_device, _check_raw, _raise_on
 
 __all__ = ["MAX_SMEM", "q1_head_consts", "inlpf_geometry", "q2l_geometry",
-           "smem_bytes", "patch_work", "patch_fused", "patch_fused_ref",
+           "ConstPack", "pack_bytes", "packed_consts", "smem_bytes",
+           "patch_work", "patch_fused", "patch_fused_ref",
            "patch_q1", "patch_q1_ref", "patch_cplx1", "patch_cplx1_ref",
            "patch_cplx2", "patch_cplx2_ref"]
 
-MAX_SMEM = 48 * 1024  # csrc/nbfm_patch.cu kMaxPatchSmem: a CTA's windows
+# csrc/nbfm_patch.cu kMaxPatchSmem: a block's opt-in maximum on Hopper
+# (P3's and P4's launches raise their kernel's limit above 48 KiB)
+MAX_SMEM = 227 * 1024
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -128,28 +139,123 @@ def _r16(nbytes: int) -> int:
     return -(-nbytes // 16) * 16
 
 
+_FIR = ("taps", "head", "y_coup")
+_STAGE = ("taps", "c_int", "head", "c_head", "tail", "tail_alias", "c_tail",
+          "yc_head", "yc_tail")
+
+
+def _pack_pieces(outf, stages) -> list:
+    """[(owner, name, tensor)] of a pack in its order (csrc/nbfm_patch.cu
+    ``ConstPack``): the audio filter's ``_FIR`` buffers, then each stage's
+    ``_STAGE`` buffers; owner "out" or the stage's index; absent ones
+    (None) left out."""
+    out = [("out", n, getattr(outf, n)) for n in _FIR]
+    for i, st in enumerate(stages):
+        out += [(i, n, getattr(st, n)) for n in _STAGE]
+    return [(o, n, t) for o, n, t in out if t is not None]
+
+
+def pack_bytes(outf, stages=()) -> int:
+    """Bytes of :func:`packed_consts`'s buffer: each piece at the next
+    multiple of 16."""
+    return sum(_r16(t.numel() * t.element_size())
+               for _, _, t in _pack_pieces(outf, stages))
+
+
+class ConstPack(NamedTuple):
+    """P3's or P4's constants in one uint8 buffer on the filters' device:
+    ``offsets[(owner, name)]`` is each piece's byte offset (a multiple of
+    16).  Made with it, once: ``structs``, the launch's ``PatchAudioFir``
+    and ``PatchStage`` structs pointing into ``buf``, and ``smem``, a
+    CTA's shared memory (:func:`smem_bytes`).  ``key`` names the filter
+    buffers it was packed from (their ids: ``sources`` keeps them alive,
+    so no id is reused while the pack is cached)."""
+    buf: torch.Tensor
+    offsets: dict
+    structs: tuple
+    smem: int
+    key: tuple
+    sources: tuple
+
+    def ptr(self, owner, name) -> int | None:
+        off = self.offsets.get((owner, name))
+        return None if off is None else self.buf.data_ptr() + off
+
+
+def _buffers_of(outf, stages) -> tuple:
+    """Every buffer of the filters (None included), in a fixed order."""
+    return tuple(t for m in (outf, *stages) for t in m._buffers.values())
+
+
+def _launch_structs(pack: ConstPack, outf, stages) -> tuple:
+    """(``PatchAudioFir``, ``PatchStage`` of each stage), their pointers
+    into ``pack``."""
+    return (_fir_struct(outf, pack),
+            *(_stage_struct(st, pack, i) for i, st in enumerate(stages)))
+
+
+# outf -> {id of each stage: ConstPack}; an entry is made anew when a
+# buffer of its filters has been replaced
+_PACKS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def packed_consts(outf, stages=()) -> ConstPack:
+    """The constants of the patch after K3 with ``stages`` (P3: one, P4:
+    the dc stage and the input lowpass) and the audio filter ``outf``, as
+    one buffer laid out as csrc/nbfm_patch.cu ``ConstPack`` walks it,
+    built by torch ops on the filters' device (nothing from the host) and
+    kept per (filters, device): the pipeline packs them when it is built,
+    so a chunk step copies nothing and a CUDA graph captures its launch."""
+    stages = tuple(stages)
+    sources = _buffers_of(outf, stages)
+    key = tuple(map(id, sources))
+    cache = _PACKS.setdefault(outf, {})
+    hit = cache.get(tuple(map(id, stages)))
+    if hit is not None and hit.key == key:
+        return hit
+    parts, offsets, off = [], {}, 0
+    for owner, name, t in _pack_pieces(outf, stages):
+        raw = t.detach().contiguous().reshape(-1).view(torch.uint8)
+        offsets[(owner, name)] = off
+        parts.append(raw)
+        pad = _r16(raw.numel()) - raw.numel()
+        if pad:
+            parts.append(raw.new_zeros(pad))
+        off += raw.numel() + pad
+    pack = ConstPack(torch.cat(parts), offsets, (), 0, key, sources)
+    pack = pack._replace(
+        structs=_launch_structs(pack, outf, stages),
+        smem=smem_bytes(("cplx1", "cplx2")[len(stages) - 1], outf, stages))
+    cache[tuple(map(id, stages))] = pack
+    return pack
+
+
 def smem_bytes(path: str, outf, stages=()) -> int:
     """Shared memory of one CTA of ``path``'s patch ("fused", "q1",
     "cplx1", "cplx2"), as csrc/nbfm_patch.cu lays it out: each window and
-    intermediate rounded up to 16 bytes."""
+    intermediate rounded up to 16 bytes; P3 and P4 first hold their
+    mbarrier (16 bytes) and the constants' pack (:func:`pack_bytes`)."""
     if path == "fused":
         return _r16(16 * outf.Wh) + _r16(4 * outf.Wh)
     if path == "q1":
         W = outf.Wh
         return _r16(32 * W) + _r16(16 * W) + _r16(4 * W)
+    head = 16 + pack_bytes(outf, stages)
     if path == "cplx1":
         (inf,) = stages
         n_pairs, w1, hy, wt = inlpf_geometry(inf, outf)
-        return (_r16(16 * w1) + _r16(16 * wt if hy else 0) + _r16(8 * n_pairs)
-                + _r16(8 * inf.Kc if hy else 0) + _r16(4 * outf.Wh))
+        return (head + _r16(16 * w1) + _r16(16 * wt if hy else 0)
+                + _r16(8 * n_pairs) + _r16(8 * inf.Kc if hy else 0)
+                + _r16(4 * outf.Wh) + _r16(4 * outf.H) + _r16(4 * hy))
     dc, inf = stages
     g = q2l_geometry(dc, inf, outf)
     tp = 0 if inf.yc_tail is None else inf.yc_tail.shape[0]
-    return (_r16(16 * g["w1_words"]) + _r16(16 * g["wt_words"])
+    return (head + _r16(16 * g["w1_words"]) + _r16(16 * g["wt_words"])
             + _r16(8 * dc.Kc) + _r16(8 * g["m1"]) + _r16(8 * g["m1t"])
             + _r16(8 * tp) + _r16(8 * g["n_pairs"]) + _r16(8 * g["pt"])
             + _r16(8 * inf.Kc if g["hy"] else 0) + _r16(4 * g["nd"])
-            + _r16(4 * g["at"]))
+            + _r16(4 * g["at"]) + _r16(4 * g["a_p"]) + _r16(4 * g["at"])
+            + _r16(4 * g["hy"]))
 
 
 def _numel(t) -> int:
@@ -254,11 +360,6 @@ def _check_buffers(mod, names, device, label: str) -> None:
                              f"{device}, got {t.dtype} on {t.device}")
 
 
-_FIR = ("taps", "head", "y_coup")
-_STAGE = ("taps", "c_int", "head", "c_head", "tail", "tail_alias", "c_tail",
-          "yc_head", "yc_tail")
-
-
 def _check_common(raw, audio, conditioning, outf, stages=()) -> tuple:
     B, n = _check_raw(raw)
     _check_audio(audio, raw)
@@ -270,11 +371,13 @@ def _check_common(raw, audio, conditioning, outf, stages=()) -> tuple:
     return B, n
 
 
-def _launch_args(raw: torch.Tensor, path: str, outf, stages=()) -> int:
-    """Checks for a launch (block count, alignment, shared memory); returns
-    the block count."""
+def _launch_args(raw: torch.Tensor, path: str, outf, stages=(),
+                 need: int | None = None) -> int:
+    """Checks for a launch (block count, alignment, shared memory: ``need``
+    bytes, or :func:`smem_bytes`'s count); returns the block count."""
     B = _check_device(raw)
-    need = smem_bytes(path, outf, stages)
+    if need is None:
+        need = smem_bytes(path, outf, stages)
     if need > MAX_SMEM:
         raise ValueError(f"the {path} patch needs {need} bytes of shared "
                          f"memory per block, above the kernel's {MAX_SMEM}")
@@ -285,17 +388,21 @@ def _ptr(t) -> int | None:
     return None if t is None else t.data_ptr()
 
 
-def _fir_struct(outf) -> _AudioFir:
+def _fir_struct(outf, pack: ConstPack | None = None) -> _AudioFir:
+    """The audio filter's ``PatchAudioFir``: its buffers' pointers, or
+    their pieces' in ``pack``."""
     hy, ky = (0, 0) if outf.y_coup is None else outf.y_coup.shape
-    return _AudioFir(_ptr(outf.taps), _ptr(outf.head), _ptr(outf.y_coup),
-                     outf.D + 1, outf.H, outf.Wh, hy, ky)
+    ptrs = ((_ptr(getattr(outf, n)) for n in _FIR) if pack is None
+            else (pack.ptr("out", n) for n in _FIR))
+    return _AudioFir(*ptrs, outf.D + 1, outf.H, outf.Wh, hy, ky)
 
 
-def _stage_struct(st) -> _Stage:
+def _stage_struct(st, pack: ConstPack, i: int) -> _Stage:
+    """Stage ``i``'s ``PatchStage``, its pointers into ``pack``."""
     hp = 0 if st.yc_head is None else st.yc_head.shape[0]
     tp = 0 if st.yc_tail is None else st.yc_tail.shape[0]
     ky = 0 if st.yc_head is None else st.yc_head.shape[2]
-    return _Stage(*(_ptr(getattr(st, n)) for n in _STAGE), st.Dc + 1, st.Hc,
+    return _Stage(*(pack.ptr(i, n) for n in _STAGE), st.Dc + 1, st.Hc,
                   st.Whc, st.Kc, st.Wtc, hp, tp, ky)
 
 
@@ -439,7 +546,9 @@ def patch_cplx1(raw: torch.Tensor, audio: torch.Tensor, inf, outf,
     """P3: uint8 [B, n] raw bytes, K3's float32 [B, n/4] output (one
     stage), the stage (``CplxFir``) and the audio filter → ``audio`` with
     its head rows and, where the audio filter reads the stage's overrun,
-    the coupling of its first hy rows patched in float64, in place."""
+    the coupling of its first hy rows patched in float64, in place.  On
+    the card it is launched as a programmatic dependent of the kernel
+    before it on the stream (K3, which triggers it at entry)."""
     B, n = _check_common(raw, audio, conditioning, outf, (inf,))
     n_pairs, w1, hy, wt = inlpf_geometry(inf, outf)
     if max(w1, wt, outf.H, hy) > n // 4:
@@ -447,9 +556,10 @@ def patch_cplx1(raw: torch.Tensor, audio: torch.Tensor, inf, outf,
                          f"patch windows ({max(w1, wt, outf.H, hy)} words)")
     if raw.device.type == "cpu":
         return patch_cplx1_ref(raw, audio, inf, outf, conditioning, precise)
-    B = _launch_args(raw, "cplx1", outf, (inf,))
+    pack = packed_consts(outf, (inf,))
+    B = _launch_args(raw, "cplx1", outf, (inf,), pack.smem)
     lib = build.load()
-    fir, st = _fir_struct(outf), _stage_struct(inf)
+    fir, st = pack.structs
     with torch.cuda.device(raw.device):
         rc = lib.patch_cplx1_launch(
             raw.data_ptr(), audio.data_ptr(), B, n // 4,
@@ -529,7 +639,8 @@ def patch_cplx2(raw: torch.Tensor, audio: torch.Tensor, dc, inf, outf,
     """P4: uint8 [B, n] raw bytes, K3's float32 [B, n/4] output (two
     stages), the DC-block and input-lowpass stages and the audio filter →
     ``audio`` with its head rows, the tail rows and the audio coupling
-    patched in float64, in place."""
+    patched in float64, in place.  On the card it is launched as a
+    programmatic dependent of the kernel before it on the stream (K3)."""
     B, n = _check_common(raw, audio, conditioning, outf, (dc, inf))
     g = q2l_geometry(dc, inf, outf)
     need = max(g["w1_words"], g["wt_words"], g["a_p"] + g["at"], g["hy"],
@@ -543,9 +654,10 @@ def patch_cplx2(raw: torch.Tensor, audio: torch.Tensor, dc, inf, outf,
     if raw.device.type == "cpu":
         return patch_cplx2_ref(raw, audio, dc, inf, outf, conditioning,
                                precise)
-    B = _launch_args(raw, "cplx2", outf, (dc, inf))
+    pack = packed_consts(outf, (dc, inf))
+    B = _launch_args(raw, "cplx2", outf, (dc, inf), pack.smem)
     lib = build.load()
-    fir, s_dc, s_in = _fir_struct(outf), _stage_struct(dc), _stage_struct(inf)
+    fir, s_dc, s_in = pack.structs
     geom = _Q2lGeometry(*(g[k] for k in _Q2L_KEYS))
     with torch.cuda.device(raw.device):
         rc = lib.patch_cplx2_launch(

@@ -1711,7 +1711,10 @@ def test_captured_continuous_checkpoint_resumes_on_card(
 PATCH_CONFIGS = {
     "default": {}, "-d 10": {"d": "10"}, "chebyshev": {"m": "1", "e": "3"},
     "-L -D 8": {"L": "12500", "D": "8"},
-    "-S 192000 -l 6500": {"S": "192000", "l": "6500"}}
+    "-S 192000 -l 6500": {"S": "192000", "l": "6500"},
+    # P4 under -q 2 -L needs 50 848 bytes of shared memory: its launch
+    # raises the kernel's limit above the default 48 KiB
+    "-d 20": {"d": "20"}}
 PATCH_MODES = {"q0": {}, "q3": {"q": "3"}, "q1": {"q": "1"},
                "L": {"L": "12500"}, "q2": {"q": "2"},
                "q2 L": {"q": "2", "L": "12500"}}
@@ -1852,3 +1855,84 @@ def test_patch_rejects_what_it_does_not_take(cuda_device):
         with pytest.raises(ValueError):
             kq.patch_fused(bad_raw, bad_audio, outf)
     assert kq.patch_fused.launches == n0
+
+
+# -- P3 and P4 as the model launches them: programmatic dependents of K3 ----
+def _graph_of(fn):
+    """``fn()`` captured as a CUDA graph after one warm-up on a side
+    stream → (graph, the captured call's output)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    return graph, out
+
+
+@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("mode", ["L", "q2", "q2 L"])
+def test_k3_patch_as_the_model_launches_it(cuda_device, mode, fast):
+    """P3 (-L, -q 2) and P4 (-q 2 -L) as the model launches them: K3, then
+    the patch with nothing between (``fused_call``; the patch starts as a
+    programmatic dependent of K3 and stores only after K3 completes), on
+    256 KiB blocks, B = 2, 16 and 256, tone and noise.  Eagerly: equal to
+    the plain version on the same K3 output (a second K3 run), or within 2
+    float32 ULP and > 140 dB (test_patch_kernel_matches_ref's bar),
+    writing only its rows.  Captured as a CUDA graph and replayed 50
+    times: every replay equal to the eager step (a store before K3's
+    completion would leave K3's row in a patched one, now and then)."""
+    pipe = _patch_pipe("default", mode, fast, cuda_device, buf=262144)
+    n, outf = pipe.cfg.buf_size, pipe.out_fir
+    stages, cond, precise = pipe.stage_consts(), pipe.conditioning, not fast
+    ref = (kq.patch_cplx1_ref if pipe.kernel_path() == "cplx1"
+           else kq.patch_cplx2_ref)
+    state = pipe.init_state()
+    tone16 = _tone(16, buf=n).to(cuda_device)
+    rng = np.random.default_rng(11)
+    for B in (2, 16, 256):
+        for data in ("tone", "noise"):
+            raw = (tone16.repeat(-(-B // 16), 1)[:B].contiguous()
+                   if data == "tone" else torch.from_numpy(rng.integers(
+                       0, 256, (B, n), np.uint8)).to(cuda_device))
+            got = pipe.fused_call(state, raw)[1]
+            base = k.fused_nbfm_cplx(raw, stages, outf.host_taps, cond,
+                                     precise)
+            want = ref(raw, base.clone(), *pipe._cplx_stages(), outf, cond,
+                       precise)
+            assert torch.equal(got != base, want != base), (B, data)
+            if not torch.equal(got, want):
+                assert _ulps(got, want) <= 2, (B, data)
+                assert _snr_db(want, got) > 140.0, (B, data)
+            graph, out = _graph_of(lambda: pipe.fused_call(state, raw)[1])
+            for rep in range(50):
+                out.fill_(float("nan"))
+                graph.replay()
+                assert torch.equal(out, got), (B, data, rep)
+            del graph, out
+
+
+def test_k3_patch_refused_launch_raises(cuda_device, monkeypatch):
+    """A P3 or P4 launch the library refuses (here constants not laid out
+    as one 16-byte-aligned pack) raises RuntimeError and counts no launch:
+    there is no fallback to another launch."""
+    for mode in ("L", "q2 L"):
+        pipe = _patch_pipe("default", mode, False, cuda_device)
+        stages, outf = tuple(pipe._cplx_stages()), pipe.out_fir
+        good = kq.packed_consts(outf, stages)
+        bad = good._replace(offsets={key: off + 8 for key, off
+                                     in good.offsets.items()})
+        bad = bad._replace(structs=kq._launch_structs(bad, outf, stages))
+        monkeypatch.setattr(kq, "packed_consts", lambda *a, **kw: bad)
+        n = pipe.cfg.buf_size
+        raw = _tone(4, buf=n).to(cuda_device)
+        audio = torch.zeros((4, n // 4), device=cuda_device)
+        counter = kq.patch_cplx1 if len(stages) == 1 else kq.patch_cplx2
+        n0 = counter.launches
+        with pytest.raises(RuntimeError, match="launch failed"):
+            _patch_call(pipe, raw, audio, None)
+        torch.cuda.synchronize()
+        assert counter.launches == n0
+        monkeypatch.undo()

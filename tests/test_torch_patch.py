@@ -17,7 +17,11 @@ default, ``-d 10``, Chebyshev ``-m 1 -e 3``, ``-L -D 8`` and ``-S 192000
   is exactly the bytes the plain version reads (recorded op by op), and
   bytes outside it change nothing;
 * the wrappers refuse a dtype, shape or contiguity their kernels do not
-  take.
+  take;
+* P3's and P4's constants pack (``packed_consts``): each piece read back
+  at its 16-byte-aligned offset, in the launcher's order; their shared
+  memory; ``patch_work`` as before their redesign; their CPU wrappers
+  reach no library.
 
 The JAX package's fused paths: tests/test_torch_patch_jax.py.  The
 kernels themselves run on the card: tests/test_torch_cuda.py ``-k patch``.
@@ -397,3 +401,138 @@ def test_wrappers_reject_what_their_kernels_do_not_take(iq_data, mode):
     short = raw[:, :16].contiguous()
     with pytest.raises(ValueError, match="shorter|cannot hold"):
         _patch(pipe, "", short, torch.zeros((BLOCKS, 4)), offs)
+
+
+# -- P3 and P4: the constants' pack, the shared memory, the work ------------
+K3_CASES = sorted({(config, mode) for config, mode, _ in CASES
+                   if _pipe(config, mode, False).kernel_path()
+                   in ("cplx1", "cplx2")})
+
+
+def _k3_pipe(config, mode):
+    pipe = _pipe(config, mode, False)
+    return pipe, tuple(pipe._cplx_stages())
+
+
+@pytest.mark.parametrize("config, mode", K3_CASES)
+def test_pack_reads_back_each_filter_tensor(config, mode):
+    """``packed_consts``: each constant of the audio filter and the stages,
+    read back at its offset, is the filter's tensor; the offsets are
+    multiples of 16, in csrc/nbfm_patch.cu ``ConstPack``'s order, each
+    piece right after the one before (rounded up to 16); the buffer's size
+    is ``pack_bytes``; a second call returns the same pack, and a replaced
+    buffer packs anew."""
+    pipe, stages = _k3_pipe(config, mode)
+    outf = pipe.out_fir
+    pack = kq.packed_consts(outf, stages)
+    assert pack.buf.dtype == torch.uint8 and pack.buf.dim() == 1
+    assert pack.buf.numel() == kq.pack_bytes(outf, stages)
+    assert pack.buf.numel() % 16 == 0
+    order = [("out", n) for n in ("taps", "head", "y_coup")] + [
+        (i, n) for i in range(len(stages))
+        for n in ("taps", "c_int", "head", "c_head", "tail", "tail_alias",
+                  "c_tail", "yc_head", "yc_tail")]
+    mods = {"out": outf, **dict(enumerate(stages))}
+    want_off = 0
+    for owner, name in order:
+        t = getattr(mods[owner], name)
+        if t is None:
+            assert (owner, name) not in pack.offsets
+            continue
+        off = pack.offsets[(owner, name)]
+        assert off % 16 == 0 and off == want_off, (owner, name)
+        nbytes = t.numel() * t.element_size()
+        got = pack.buf[off: off + nbytes].view(t.dtype).reshape(t.shape)
+        assert torch.equal(got, t), (owner, name)
+        want_off += -(-nbytes // 16) * 16
+    assert want_off == pack.buf.numel()
+    # the launch's structs point at the pieces; the CTA's shared memory
+    fir, *sts = pack.structs
+    base = pack.buf.data_ptr()
+    for struct, owner, names in ((fir, "out", ("taps", "head", "y_coup")),
+                                 *((st, i, ("taps", "c_int", "head",
+                                            "yc_tail"))
+                                   for i, st in enumerate(sts))):
+        for name in names:
+            off = pack.offsets.get((owner, name))
+            assert getattr(struct, name) == (None if off is None
+                                             else base + off), (owner, name)
+    assert pack.smem == kq.smem_bytes(pipe.kernel_path(), outf, stages)
+    assert kq.packed_consts(outf, stages) is pack
+    stages[0].c_int = stages[0].c_int.clone()
+    again = kq.packed_consts(outf, stages)
+    assert again is not pack and torch.equal(again.buf, pack.buf)
+
+
+def test_pack_sizes_of_the_cli_filters():
+    """The CLI's filters (-S 96000 -l 12500 -L 12500): 5968 bytes of
+    constants for P4 (-q 2 -L), 2320 for P3 (-L, and -q 2)."""
+    for mode, want in (("q2 L", 5968), ("L", 2320), ("q2", 2320)):
+        pipe, stages = _k3_pipe("default", mode)
+        assert kq.pack_bytes(pipe.out_fir, stages) == want, mode
+
+
+@pytest.mark.parametrize("config, mode", K3_CASES)
+def test_shared_memory_holds_the_pack_and_fits(config, mode):
+    """P3's and P4's shared memory is the mbarrier (16 bytes), the pack
+    and the windows and chain values (each rounded to 16), under
+    ``MAX_SMEM``, and above 48 KiB nowhere here (no launch raises its
+    kernel's limit)."""
+    pipe, stages = _k3_pipe(config, mode)
+    outf, path = pipe.out_fir, pipe.kernel_path()
+    need = kq.smem_bytes(path, outf, stages)
+    pack = kq.pack_bytes(outf, stages)
+    assert need % 16 == 0 and 16 + pack < need <= 48 * 1024 < kq.MAX_SMEM
+    if path == "cplx1":
+        n_pairs, w1, hy, wt = kq.inlpf_geometry(stages[0], outf)
+        windows = 16 * w1 + (16 * wt if hy else 0)
+    else:
+        g = kq.q2l_geometry(*stages, outf)
+        windows = 16 * (g["w1_words"] + g["wt_words"])
+    assert need - 16 - pack > windows
+
+
+def test_shared_memory_above_48k_fits_max_smem():
+    """``-d 20 -q 2 -L`` (a config the CLI takes, on the kernel path): P4
+    needs more than the default 48 KiB of shared memory, its pack most of
+    it, and fits ``MAX_SMEM`` (the launch raises the kernel's limit)."""
+    cfg = config_from_cli_opts({**BASE, "d": "20", "q": "2", "L": "12500"})
+    cfg.buf_size = BUF
+    pipe = BlockPipeline(cfg, device="cpu")
+    stages = tuple(pipe._cplx_stages())
+    assert pipe.fused_ineligible_reason() is None
+    need = kq.smem_bytes("cplx2", pipe.out_fir, stages)
+    assert 48 * 1024 < need <= kq.MAX_SMEM
+    assert kq.pack_bytes(pipe.out_fir, stages) > need // 2
+
+
+def test_patch_work_is_unchanged():
+    """The bound counts the same work as before the redesign (bytes,
+    float32 and float64 operations at B = 16, the CLI's filters)."""
+    for mode, fast, want in (("q2 L", False, (7528, 12912, 35584)),
+                             ("q2 L", True, (7528, 11952, 35584)),
+                             ("L", False, (3704, 5376, 15104)),
+                             ("q2", False, (3704, 5376, 15104))):
+        pipe, stages = _k3_pipe("default", mode)
+        got = kq.patch_work(pipe.kernel_path(), pipe.out_fir, stages, 16,
+                            not fast)
+        assert got == want, (mode, fast, got)
+
+
+@pytest.mark.parametrize("mode", ["L", "q2", "q2 L"])
+def test_cpu_wrappers_run_their_refs_without_the_library(iq_data,
+                                                          monkeypatch, mode):
+    """On CPU tensors P3 and P4 run their plain versions: no library is
+    built or loaded, no pack is made, no launch is counted."""
+    def refuse(*a, **k):
+        raise AssertionError("the CPU path reached the kernel's launch")
+    monkeypatch.setattr(kq.build, "load", refuse)
+    monkeypatch.setattr(kq, "packed_consts", refuse)
+    pipe, _ = _k3_pipe("default", mode)
+    raw = torch.from_numpy(_tone(iq_data))
+    audio, _ = _main(pipe, raw)
+    counter = getattr(kq, PATHS[pipe.kernel_path()])
+    n0 = counter.launches
+    got = _patch(pipe, "", raw, audio.clone(), None)
+    assert torch.equal(got, _patch(pipe, "_ref", raw, audio.clone(), None))
+    assert counter.launches == n0
