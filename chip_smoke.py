@@ -36,8 +36,9 @@ Phases, each fatal on failure (exit code != 0, no result line):
      against P2's plain version over it, > 110 dB from the eager step);
    - fused_pfb (K6) for every C of tests/test_torch_cuda.py (2 to 256,
      radix and direct FFT factors, the primes 17 and 251 on the direct
-     DFT) and, on its three-factor route, C = 257, 384, 512, 1000, 1024
-     and 4096 at 6.25 kHz channels (1.6 to 25.6 Msps), on two streamed
+     DFT) and, on its three-factor route, C = 257, 384, 512, 1000, 1024,
+     2048 and 4096 at 6.25 kHz channels (1.6 to 25.6 Msps; 384, 512, 1024,
+     2048 and 4096 on the compiled-in plans), on two streamed
      0.25 s blocks of an on-grid FM bank capture and of noise (C = 4 also
      on one 10-block bank4 chunk): angle-wrapped error < 0.01 rad, > 80
      dB, the carried history bit-equal;
@@ -176,8 +177,11 @@ Phases, each fatal on failure (exit code != 0, no result line):
    blocks, each first held against its plain version there as in phase
    3; fused_pfb at
    C = 64 on one bank64 block and at C = 4 on one bank4 chunk, with its FFT
-   plan, and on its three-factor route at C = 384, 512, 1024 and 4096 on
-   one 0.25 s block of 6.25 kHz channels (a ``PFB_WIDE {json}`` line); the
+   plan, and on its three-factor route at C = 384, 512, 1024, 2048 and
+   4096 on one 0.25 s block of 6.25 kHz channels (a ``PFB_WIDE {json}``
+   line: each C's kernel, its registers, local memory (stack and spills),
+   shared memory and CTAs an SM, and ``torch.fft.fft``'s time on the
+   block's frames in complex128, the FFT part alone as a yardstick); the
    bank's audio FIR; K1 and K4 with their head rows (P1, P2)
    and the patch kernels P3, P4 at 16, 256 and 2 blocks beside their
    plain versions, with their bounds (the kernel's and the patch's work
@@ -248,14 +252,15 @@ from demodulator_tpu_torch.models.channel_bank import (ChannelBankConfig,
 from demodulator_tpu_torch.models.nbfm import BlockPipeline
 from demodulator_tpu_torch.models.wbfm import WbfmConfig, WbfmPipeline
 from demodulator_tpu_torch.ops.channelizer import PolyphaseChannelizer
+from demodulator_tpu_torch.ops.conditioning import split_iq
 from demodulator_tpu_torch.ops.cuda import build
 from demodulator_tpu_torch.ops.cuda.fused_nbfm import (
     dma_floor, dma_floor_ref, fused_nbfm, fused_nbfm_cplx,
     fused_nbfm_cplx_ref, fused_nbfm_q1, fused_nbfm_q1_ref, fused_nbfm_q1_seq,
     fused_nbfm_q1_seq_ref, fused_nbfm_ref)
-from demodulator_tpu_torch.ops.cuda.fused_pfb import (fft_plan,
-                                                      fused_pfb_demod,
-                                                      fused_pfb_demod_ref)
+from demodulator_tpu_torch.ops.cuda.fused_pfb import (
+    WIDE_PLANS, WIDE_TAPS, fft_plan, fused_pfb_demod, fused_pfb_demod_ref,
+    kernel_attrs)
 from demodulator_tpu_torch.ops.cuda.nbfm_patch import (
     patch_cplx1, patch_cplx1_ref, patch_cplx2, patch_cplx2_ref,
     patch_fused_ref, patch_q1_ref, patch_work)
@@ -305,12 +310,12 @@ BAR_BANK_ATOL = 1e-4     # tests/test_fused_pfb.py:107
 # K6's channel counts in phase 3: tests/test_torch_cuda.py
 # test_pfb_kernel_matches_ref; up to 256 at CR, the three-factor route's
 # (C > 256) at 6.25 kHz channels (NXDN, dPMR): 1.6 Msps (257), 2.4 (384),
-# 3.2 (512), 6.25 (1000), 6.4 (1024) and 25.6 Msps (4096)
+# 3.2 (512), 6.25 (1000), 6.4 (1024), 12.8 (2048) and 25.6 Msps (4096)
 PFB_CHANNELS = (2, 3, 4, 5, 8, 12, 16, 17, 32, 48, 64, 128, 251, 256)
 NARROW_CR = 6250.0
-PFB_WIDE_CHANNELS = (257, 384, 512, 1000, 1024, 4096)
+PFB_WIDE_CHANNELS = (257, 384, 512, 1000, 1024, 2048, 4096)
 # phase 5's K6 timings on the three-factor route, a 0.25 s block each
-PFB_WIDE_TIMED = (384, 512, 1024, 4096)
+PFB_WIDE_TIMED = (384, 512, 1024, 2048, 4096)
 # bank CLI runs of phase 4: name -> (channels, capture bytes, carrier
 # channels (indices into the --bank list), blocks per call)
 BANK_RUNS = {"bank64": (64, 256 << 20, (4, 12, 20, 28, 35, 43, 51, 59), 1),
@@ -1485,7 +1490,7 @@ def phase_resume_bank(work: Path, smi: str) -> None:
 KERNEL_SYMBOLS = {"fused_nbfm": "fused_nbfm_kernel",
                   "fused_nbfm_cplx": "fused_nbfm_cplx_kernel",
                   "fused_nbfm_q1": "q1_kernel",
-                  "fused_pfb": "pfb_(?:big_)?kernel",
+                  "fused_pfb": "pfb_(?:big_|wide_)?kernel",
                   **{p: f"{p}_kernel" for p in PATCHES}}
 
 
@@ -2525,22 +2530,27 @@ def time_ms(fn, reps: int = 20, inner: int = 10) -> float:
     return float(np.median(times))
 
 
-def device_us(fn, kernel: str, calls: int = 20) -> tuple:
+def device_us(fn, kernel: str, calls: int = 20, tries: int = 3) -> tuple:
     """(device time in µs per call of ``fn`` of the CUDA kernels whose
     names contain ``kernel``, their launches per call), from
     torch.profiler: the kernels alone, without the host's launch overhead.
     A kernel's time per call is its mean per recorded launch times its
-    launches per call, rounded (the profiler can drop a record).  (None, 0)
-    when the profiler records no such kernel."""
+    launches per call, rounded (the profiler can drop a record).  A window
+    that records no such kernel is profiled again, up to ``tries`` windows
+    (one on the H100 recorded none of twenty K6 launches); (None, 0) when
+    none does."""
     from torch.profiler import ProfilerActivity
     fn()
     torch.cuda.synchronize()
-    with warm_profile(ProfilerActivity.CUDA) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    evts = [e for e in prof.key_averages() if kernel in e.key]
-    if not evts:
+    for _ in range(tries):
+        with warm_profile(ProfilerActivity.CUDA) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        evts = [e for e in prof.key_averages() if kernel in e.key]
+        if evts:
+            break
+    else:
         return None, 0
     if len(evts) > 1:
         names = [re.search(r"\w+_kernel", e.key).group(0) for e in evts]
@@ -2936,7 +2946,9 @@ def phase_timings(dev, smi: str) -> dict:
             say(f"{label} fused_pfb: {nbytes / 1e3 / us:.1f} GB/s against "
                 f"dma_floor's {floor_gbs:.1f} GB/s (B=16)")
         del raw, d, dsel
-    # K6's three-factor route on one 0.25 s block of 6.25 kHz channels
+    # K6's three-factor route on one 0.25 s block of 6.25 kHz channels:
+    # pfb_wide_kernel (the compiled-in plans) or pfb_big_kernel
+    wide = {}
     for C in PFB_WIDE_TIMED:
         pfb = PolyphaseChannelizer(C)
         fs = C * NARROW_CR
@@ -2949,21 +2961,33 @@ def phase_timings(dev, smi: str) -> dict:
         h_dev = torch.from_numpy(h.astype(np.float32)).to(dev)
         d, _ = fused_pfb_demod(raw, hist, h, C, h_dev=h_dev)
         nbytes = raw.numel() + 4 * d.numel() + 2 * 4 * hist.numel()
+        kern = ("pfb_wide_kernel" if C in WIDE_PLANS and pfb.P == WIDE_TAPS
+                else "pfb_big_kernel")
+        # the FFT part alone, as a yardstick: torch.fft.fft of the block's
+        # frames (its branch outputs) in complex128
+        z, _ = pfb.branch_filter(torch.stack(split_iq(raw)), hist)
+        frames = torch.complex(z[0].double(), z[1].double())
         run_cases(out, f"wide{C}", {
             "fused_pfb": (lambda: fused_pfb_demod(raw, hist, h, C,
                                                   h_dev=h_dev),
-                          "pfb_big_kernel", nbytes, pfb_ops(n, C, pfb.P)),
+                          kern, nbytes, pfb_ops(n, C, pfb.P)),
             "fused_pfb_ref": (lambda: fused_pfb_demod_ref(raw, hist, h, C),
                               None, 0, 0),
+            "torch.fft.fft": (lambda: torch.fft.fft(frames, dim=-1), None,
+                              0, 0),
         }, nbytes / 1e9, f"C={C} at {fs / 1e6:g} Msps (FFT "
            f"{' x '.join(map(str, fft_plan(C)))}; 0.25 s, {n} samples)")
-        del raw, d
+        wide[C] = {"kernel": kern, **kernel_attrs(C, pfb.P)}
+        say(f"C={C} {kern}: {wide[C]}")
+        del raw, d, z, frames
     say("PFB_WIDE " + json.dumps({"card": smi, "C": {
         str(C): {"device_us": out[("fused_pfb", f"wide{C}", "device_us")],
                  "ms": out[("fused_pfb", f"wide{C}")],
                  "plain_ms": out[("fused_pfb_ref", f"wide{C}")],
                  "bound_ms": out[("fused_pfb", f"wide{C}", "bound")][0],
-                 "bound_by": out[("fused_pfb", f"wide{C}", "bound")][1]}
+                 "bound_by": out[("fused_pfb", f"wide{C}", "bound")][1],
+                 "fft_alone_ms": out[("torch.fft.fft", f"wide{C}")],
+                 **wide[C]}
         for C in PFB_WIDE_TIMED}}))
     return out
 

@@ -18,11 +18,12 @@
 // about kTileSamples complex samples, kSmallTileSamples at C = 2 and 4; the
 // last tile takes what is left, so any block of T % 2C == 0 samples runs, at
 // every C up to kMaxStaged; above, up to kMaxChannels, the three-factor
-// route further down, pfb_big_kernel).  The plan's sizes (C, its factors,
-// the strides, F, the frame pairs of a warp batch) are compile-time
-// constants for every power of two C from 2 to 256 with the 12-tap
-// prototype (Fixed), so divisions and addresses fold into shifts and
-// immediates; any other C or P reads them from the host's Plan.  Per tile:
+// route further down, pfb_wide_kernel and pfb_big_kernel).  The plan's
+// sizes (C, its factors, the strides, F, the frame pairs of a warp batch)
+// are compile-time constants for every power of two C from 2 to 256 with
+// the 12-tap prototype (Fixed), so divisions and addresses fold into
+// shifts and immediates; any other C or P reads them from the host's Plan.
+// Per tile:
 //   1. staging: the conditioned samples of the tile's frames and the P*C
 //      before them go to shared memory as float2 (I, Q), from the history
 //      where they precede the launch, else from the input, a 32-bit word
@@ -88,6 +89,8 @@
 // with the branch filter, 15.4 with the discriminator and 21.5 for the
 // whole kernel; a bank4 chunk (C = 4, 2 x 2) 3.2, 4.1, 8.1, 8.1 and
 // 10.2 us.  PERF.md has the numbers.
+
+#include <algorithm>
 
 #include "nbfm_device.cuh"
 
@@ -779,8 +782,10 @@ int launch_plan(const uint16_t* in, const float* hist, const float* h, const dou
 // The three-factor route: C > kMaxStaged.  A tile of the route above stages
 // (P + F) * C samples as float2, which passes a CTA's shared memory at C of
 // about 900, so here a CTA takes one frame pair and stages none of the
-// input.  With C = C1*C2*C3 (the wrapper's plan: C2 <= 16, C1 and C3 any
-// size), D = C2*C3, c = D*c1 + C3*c2 + c3 and k = k1 + C1*k2 + C1*C2*k3:
+// input (pfb_big_kernel: any plan not compiled in; pfb_wide_kernel further
+// down runs the 6.25 kHz grids, the same function laid out for the H100).
+// With C = C1*C2*C3 (the wrapper's plan: C2 <= 16, C1 and C3 any size), D =
+// C2*C3, c = D*c1 + C3*c2 + c3 and k = k1 + C1*k2 + C1*C2*k3:
 //
 //   u1[k1, d]      = w_C^(k1 d)   * sum_c1 w_C1^(k1 c1) z[D c1 + d]       (stage 1)
 //   u2[k1, k2, c3] = w_C^(C1 k2 c3) * sum_c2 w_C2^(k2 c2) u1[k1, C3 c2 + c3]  (stage 2)
@@ -1080,19 +1085,605 @@ pfb_big_kernel(const uint16_t* __restrict__ in, const float* __restrict__ hist,
   }
 }
 
+constexpr int kMaxDevices = 64;
+
+// The current device's ordinal, or -1 where it is none the caches below
+// can key.
+int current_device() {
+  int dev = -1;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices) return -1;
+  return dev;
+}
+
+// pfb_big_kernel's shared-memory limit raised to the most a CTA can have,
+// once per device
+int raise_big_smem() {
+  static bool raised[kMaxDevices] = {};
+  const int dev = current_device();
+  if (dev >= 0 && raised[dev]) return cudaSuccess;
+  const cudaError_t rc = cudaFuncSetAttribute(
+      pfb_big_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (rc == cudaSuccess && dev >= 0) raised[dev] = true;
+  return static_cast<int>(rc);
+}
+
 int launch_big(const uint16_t* in, const float* hist, const float* h, const double2* table,
                float* d, float* new_hist, long long n, int C, int C1, int C2, int P,
                int precise, cudaStream_t s) {
   const Big b = make_big(C, C1, C2, P, precise);
   const size_t smem = big_smem_bytes(b);
   if (smem > static_cast<size_t>(kMaxSmem)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t rc = cudaFuncSetAttribute(pfb_big_kernel,
-                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                        static_cast<int>(smem));
-  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const int rc = raise_big_smem();
+  if (rc != cudaSuccess) return rc;
   pfb_big_kernel<<<static_cast<unsigned>(n / (2LL * C)), kThreads, smem, s>>>(
       in, hist, h, table, d, new_hist, n, b);
   return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// The three-factor route's compiled-in plans (pfb_wide_kernel): the grids
+// users run, 6.25 kHz channels of 2.4 to 25.6 Msps, C = 384 (3 x 8 x 16),
+// 512 (8 x 8 x 8), 1024 (8 x 8 x 16), 2048 (8 x 16 x 16) and 4096 (16 x 16
+// x 16) with the kTaps-tap prototype, as the wrapper plans them (Wide, the
+// PFB_WIDE list below; every other C > kMaxStaged, or another P, runs
+// pfb_big_kernel above).  The same function, the same stage order and the
+// same table as pfb_big_kernel, laid out for the H100:
+//   - a unit is G consecutive frame pairs (Wide::G), and a CTA walks a run
+//     of consecutive units (grid: the units, at most the CTAs the card holds
+//     at once, each run within one of the others' length), so each FFT stage
+//     has about Wide::T columns or more, and the barriers, the plan's
+//     constants and the wave tail are paid once a run;
+//   - the input rows a unit reads, P + 2G rows of C samples ((m0 - P)C up to
+//     (m0 + 2G)C for first frame m0), are staged as raw 16-bit words in a
+//     ring of P + 2G rows in shared memory by bulk asynchronous copies
+//     (cp.async.bulk, completing on one mbarrier), a unit's 2G new rows
+//     issued as soon as the unit before it has filtered, so they arrive
+//     during its FFT (input not 16-byte aligned: the CTA's threads copy
+//     them); rows before sample 0 come from the history, as big_sample
+//     takes them;
+//   - the branch filter takes channel c of the unit's 2G frames at once,
+//     sliding a window of 2G samples down the staged column (P + 2G - 1
+//     loads and conditionings, P tap loads for 2G outputs), each z summed
+//     tap by tap from p = 0 as the plain version sums it, into the stage
+//     buffer U as float64 in stage 1's layout (no separate z buffer);
+//   - stages 1 and 2 in place in U, a column per thread, stage 3 a column
+//     of both frames of a pair per thread with the discriminator; every
+//     size, stride and index a compile-time constant, each stage's own
+//     factors w_N^m constants (kW16, kW3: the table's entries, bit for bit),
+//     the twiddles between the stages read from the table;
+//   - at 2048 and 4096 (Wide::kSeq) a pair's two float64 spectra would
+//     leave no room for the staged rows, so U holds one frame: the filter
+//     parks the odd frame's z in Zo (float32), the even frame's y waits in
+//     its thread's registers (one stage-3 column a thread) until the odd
+//     frame's, which stage 1 reads from Zo.
+// Registers are held to the CTAs an SM that shared memory allows
+// (Wide::CTAS); no plan spills.  No thread block cluster: at 4096 one
+// frame's spectra, Zo and the staged rows fill the SM (213 264 bytes), and
+// a cluster would only have split a pair the ring already feeds.
+//
+// What bounds it: the bound counts 2 bytes in and 2 out a sample and, as
+// float32 work, 4P operations a sample for the branch filter and 5 log2(C)
+// for the FFT (chip_smoke.py pfb_ops).  The kernel issues the filter's
+// separate float32 multiplies and adds (48 a sample at P = 12) with about 5
+// integer operations a staged sample for its conditioning, the float64 FFT
+// (about 20 operations a sample at half the float32 rate, and the powers of
+// the twiddles), the discriminator, and a barrier a stage; the filter is the
+// largest part.  On an NVIDIA H100 80GB HBM3 at 700 W (ops/cuda/sections.py
+// pfb, cumulative) one 0.25 s block at C = 512 takes 1.9 us for the output
+// alone, 6.8 with the branch filter and its staging, 7.5 with stage 1, 8.8
+// with stage 2 and 9.8 for the whole kernel (pfb_big_kernel: 28.2); at C =
+// 4096 5.8, 81.1, 93.5, 104.2 and 114.1 us (437.2).  PERF.md has the
+// numbers.
+
+// e^{+j 2 pi m / 16} and e^{+j 2 pi m / 3}: numpy's cos and sin of 2 pi m / n,
+// the table's entries m*C/16 and m*C/3 (tests/test_torch_kernel_plans.py)
+__constant__ double2 kW16[16] = {
+    {0x1.0000000000000p+0, 0x0.0p+0},
+    {0x1.d906bcf328d46p-1, 0x1.87de2a6aea963p-2},
+    {0x1.6a09e667f3bcdp-1, 0x1.6a09e667f3bccp-1},
+    {0x1.87de2a6aea964p-2, 0x1.d906bcf328d46p-1},
+    {0x1.1a62633145c07p-54, 0x1.0000000000000p+0},
+    {-0x1.87de2a6aea962p-2, 0x1.d906bcf328d46p-1},
+    {-0x1.6a09e667f3bccp-1, 0x1.6a09e667f3bcdp-1},
+    {-0x1.d906bcf328d46p-1, 0x1.87de2a6aea965p-2},
+    {-0x1.0000000000000p+0, 0x1.1a62633145c07p-53},
+    {-0x1.d906bcf328d47p-1, -0x1.87de2a6aea961p-2},
+    {-0x1.6a09e667f3bcep-1, -0x1.6a09e667f3bccp-1},
+    {-0x1.87de2a6aea96dp-2, -0x1.d906bcf328d44p-1},
+    {-0x1.a79394c9e8a0ap-53, -0x1.0000000000000p+0},
+    {0x1.87de2a6aea967p-2, -0x1.d906bcf328d45p-1},
+    {0x1.6a09e667f3bcbp-1, -0x1.6a09e667f3bcep-1},
+    {0x1.d906bcf328d44p-1, -0x1.87de2a6aea96ep-2}};
+__constant__ double2 kW3[3] = {{0x1.0000000000000p+0, 0x0.0p+0},
+                               {-0x1.ffffffffffffcp-2, 0x1.bb67ae8584cabp-1},
+                               {-0x1.0000000000004p-1, -0x1.bb67ae8584ca8p-1}};
+
+// w_N^m, N a radix size or 3
+template <int N>
+__device__ __forceinline__ double2 wconst(int m) {
+  static_assert(N == 3 || (is_radix(N)), "a compiled-in stage is 2, 3, 4, 8 or 16 points");
+  if constexpr (N == 3) {
+    return kW3[m];
+  } else {
+    return kW16[m * (16 / N)];
+  }
+}
+
+// fft_pass with the constant factors
+template <int N, int LEN>
+__device__ __forceinline__ void wide_pass(double2 (&v)[N]) {
+#pragma unroll
+  for (int j = 0; j < LEN / 2; ++j) {
+    const double2 w = wconst<LEN>(j);
+#pragma unroll
+    for (int i = 0; i < N; i += LEN) {
+      const double2 a = v[i + j];
+      const double2 c = v[i + j + LEN / 2];
+      const double2 b = j == 0 ? c : (4 * j == LEN ? make_double2(-c.y, c.x) : cmul(c, w));
+      v[i + j] = make_double2(__dadd_rn(a.x, b.x), __dadd_rn(a.y, b.y));
+      v[i + j + LEN / 2] = make_double2(__dsub_rn(a.x, b.x), __dsub_rn(a.y, b.y));
+    }
+  }
+  if constexpr (LEN < N) wide_pass<N, 2 * LEN>(v);
+}
+
+// The N-point DFT of v in place, natural order in and out: v[k] = sum_c v[c]
+// w_N^(k c).  A radix size is the butterfly network, 3 the direct sum.
+template <int N>
+__device__ __forceinline__ void wide_fft(double2 (&v)[N]) {
+  if constexpr (is_radix(N)) {
+    double2 a[N];
+#pragma unroll
+    for (int i = 0; i < N; ++i) a[i] = v[bitrev<N>(i)];
+    wide_pass<N, 2>(a);
+#pragma unroll
+    for (int i = 0; i < N; ++i) v[i] = a[i];
+  } else {
+    double2 y[N];
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      double2 acc = make_double2(0.0, 0.0);
+#pragma unroll
+      for (int c = 0; c < N; ++c) acc = cmac(acc, v[c], wconst<N>((k * c) % N));
+      y[k] = acc;
+    }
+#pragma unroll
+    for (int k = 0; k < N; ++k) v[k] = y[k];
+  }
+}
+
+// A compiled-in plan: C = kC1 * kC2 * kC3 with the kTaps-tap prototype, kG
+// frame pairs a unit, kSeq (kG = 1) one frame in U at a time, kT threads,
+// registers held to kCtas CTAs an SM.
+template <int kC1, int kC2, int kC3, int kG, bool kSeqFrames, int kT, int kCtas>
+struct Wide {
+  static constexpr int C1 = kC1, C2 = kC2, C3 = kC3, C = kC1 * kC2 * kC3, P = kTaps;
+  static constexpr int G = kG, T = kT, CTAS = kCtas;
+  static constexpr bool kSeq = kSeqFrames;
+  static constexpr int NF = 2 * kG;          // frames a unit
+  static constexpr int UF = kSeq ? 1 : NF;   // frames in U at once
+  static constexpr int D = kC2 * kC3;        // stage 1's columns a frame
+  static constexpr int S1 = D % 2 ? D : D + 1, FS = kC1 * S1;  // U's row and frame strides
+  static constexpr int ST = kC1 * kC2;       // stage 3's columns a frame
+  static constexpr int RING = P + NF;        // staged rows of C samples
+  static constexpr int UNROLL = kSeq ? 4 : 2;  // the branch filter's channels in flight
+  // shared memory: U (double2 [UF][C1][S1]) | Zo (float2 [C], kSeq) | the
+  // ring (uint16 [RING][C]) | the mbarrier
+  static constexpr int kUBytes = 16 * UF * FS, kZoBytes = kSeq ? 8 * C : 0;
+  static constexpr int kRingBytes = 2 * RING * C;
+  static constexpr int kSmem = kUBytes + kZoBytes + kRingBytes + 16;
+  static_assert(C % 8 == 0, "rows of whole 16-byte chunks");
+  static_assert(C % (kT * UNROLL) == 0, "whole unrolled channel runs");
+  static_assert(!kSeq || (kG == 1 && ST == kT), "one stage-3 column a thread");
+  static_assert(kSmem <= kMaxSmem, "a CTA's shared memory");
+};
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// One thread: bytes of transactions expected in the mbarrier's phase, and a
+// bulk asynchronous copy of [src, src + bytes) into dst completing on it.
+__device__ __forceinline__ void ring_expect(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void ring_copy(void* dst, const void* src, unsigned bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
+          "r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+__device__ __forceinline__ void ring_wait(uint64_t* bar, unsigned parity) {
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2; "
+        "selp.u32 %0, 1, 0, p; }"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// Rows [ra, rb) of the input (row r: samples rC .. rC + C - 1) into ring
+// slots r mod RING: bulk copies issued by thread 0 (a copy a contiguous run
+// of slots), or, for input not 16-byte aligned, copied by every thread.
+template <class W>
+__device__ __forceinline__ void wide_fill(const uint16_t* __restrict__ in, uint16_t* ring,
+                                          uint64_t* bar, long long ra, long long rb, bool bulk) {
+  constexpr int C = W::C, RING = W::RING;
+  if (bulk) {
+    if (threadIdx.x == 0) {
+      // the slots' earlier reads (ordered by the barrier before) come before
+      // the copies' writes
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      ring_expect(bar, static_cast<unsigned>((rb - ra) * 2 * C));
+      while (ra < rb) {
+        const int sl = static_cast<int>(ra % RING);
+        const long long k = min(rb - ra, static_cast<long long>(RING - sl));
+        ring_copy(ring + sl * C, in + ra * C, static_cast<unsigned>(k * 2 * C), bar);
+        ra += k;
+      }
+    }
+  } else {
+    const int len = static_cast<int>(rb - ra) * C;
+    for (int i = threadIdx.x; i < len; i += W::T) {
+      ring[static_cast<int>((ra + i / C) % RING) * C + i % C] = in[ra * C + i];
+    }
+  }
+}
+
+__device__ __forceinline__ float2 wide_cond(uint32_t w) {
+  const float4 c = condition_word<false>(w);  // bytes 2, 3 unused
+  return make_float2(c.x, c.y);
+}
+
+// The branch filter of the unit's NF frames m0 .. m0 + NF - 1, into U in
+// stage 1's layout (channel c = D c1 + d of frame f at f*FS + c1*S1 + d;
+// kSeq: frame 1 into Zo[c]).  x(q) = sample (m0 + q)C - c, q = -(P-1) ..
+// NF-1, lies in row m0 + q - 1 at position C - c for c > 0, in row m0 + q at
+// position 0 for c = 0; rows before 0 are the history's (the units with m0
+// < P; kHist false: a unit with none, the check compiled out).  The rows'
+// ring offsets are the unit's, the same for every channel: a load is a
+// select and an add.  Frame r at tap p reads x(r - p) from slot (r - p) mod
+// NF of a window of NF samples: a new sample a tap.
+template <class W, bool kHist>
+__device__ __forceinline__ void wide_filter(const uint16_t* ring, const float* __restrict__ hist,
+                                            const float* __restrict__ h, double2* U, float2* Zo,
+                                            long long m0) {
+  constexpr int C = W::C, P = W::P, NF = W::NF, RING = W::RING, Q = P + NF;
+  constexpr int D = W::D, S1 = W::S1, FS = W::FS;
+  // off[j]: the ring offset of row m0 - P + j
+  int off[Q];
+  const int base = static_cast<int>((m0 + RING - P) % RING);
+#pragma unroll
+  for (int j = 0; j < Q; ++j) off[j] = (base + j < RING ? base + j : base + j - RING) * C;
+  const int m = kHist && m0 < P ? static_cast<int>(m0) : P;  // rows before 0: q < 1 - m
+  // W::UNROLL channels' loads in flight a thread
+#pragma unroll W::UNROLL
+  for (int i = 0; i < C / W::T; ++i) {
+    const int c = threadIdx.x + i * W::T;
+    const int e = c > 0;
+    const int pos = e ? C - c : 0;
+    const int qlo = e - m;  // x(q) for q < qlo is the history's
+    auto x = [&](int q) -> float2 {
+      if (kHist && q < qlo) {
+        const int s = (m + q) * C - c;
+        return make_float2(hist[P * C + s], hist[2 * P * C + s]);
+      }
+      return wide_cond(ring[(e ? off[q + P - 1] : off[q + P]) + pos]);
+    };
+    float2 w[NF];
+    float ar[NF], ai[NF];
+    const float h0 = __ldg(h + c);
+#pragma unroll
+    for (int r = 0; r < NF; ++r) {
+      w[r] = x(r);
+      ar[r] = __fmul_rn(h0, w[r].x);
+      ai[r] = __fmul_rn(h0, w[r].y);
+    }
+#pragma unroll
+    for (int p = 1; p < P; ++p) {
+      w[(P * NF - p) % NF] = x(-p);  // slot (-p) mod NF
+      const float hv = __ldg(h + p * C + c);
+#pragma unroll
+      for (int r = 0; r < NF; ++r) {
+        const float2 xv = w[(P * NF + r - p) % NF];  // slot (r - p) mod NF
+        ar[r] = __fadd_rn(ar[r], __fmul_rn(hv, xv.x));
+        ai[r] = __fadd_rn(ai[r], __fmul_rn(hv, xv.y));
+      }
+    }
+    const int at = (c / D) * S1 + c % D;
+#pragma unroll
+    for (int r = 0; r < NF; ++r) {
+      if (W::kSeq && r == 1) {
+        Zo[c] = make_float2(ar[r], ai[r]);
+      } else {
+        U[r * FS + at] = make_double2(ar[r], ai[r]);
+      }
+    }
+  }
+}
+
+// p[k] = w^k for k < N, by squarings and products in float64 (a power
+// within a few ulps of the table's entry): the twiddles of a column from
+// one entry of the table
+template <int N>
+__device__ __forceinline__ void wide_powers(double2 w, double2 (&p)[N]) {
+  p[0] = make_double2(1.0, 0.0);
+#pragma unroll
+  for (int k = 1; k < N; ++k) {
+    p[k] = k == 1 ? w : (k % 2 ? cmul(p[k - 1], w) : cmul(p[k / 2], p[k / 2]));
+  }
+}
+
+// Stage 1 in place in U (zo: frame 0 of U from Zo), a column (f, d) a
+// thread: y = the C1-point DFT of U[f][.][d], times w_C^(k1 d) = (w_C^d)^k1
+template <class W>
+__device__ __forceinline__ void wide_stage1(double2* U, const float2* Zo,
+                                            const double2* __restrict__ tw, bool zo) {
+  constexpr int C1 = W::C1, D = W::D, S1 = W::S1, FS = W::FS;
+#pragma unroll 1
+  for (int t = threadIdx.x; t < W::UF * D; t += W::T) {
+    const int f = t / D, dd = t % D;
+    double2* u = U + f * FS + dd;
+    double2 v[C1];
+    if (zo) {
+#pragma unroll
+      for (int i = 0; i < C1; ++i) {
+        const float2 z = Zo[i * D + dd];
+        v[i] = make_double2(z.x, z.y);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < C1; ++i) v[i] = u[i * S1];
+    }
+    double2 w[C1];
+    wide_powers<C1>(__ldg(tw + dd), w);
+    wide_fft<C1>(v);
+#pragma unroll
+    for (int k1 = 0; k1 < C1; ++k1) u[k1 * S1] = k1 ? cmul(v[k1], w[k1]) : v[k1];
+  }
+}
+
+// Stage 2 in place in U, a column (f, k1, c3) a thread: the C2-point DFT of
+// U[f][k1][C3 c2 + c3] over c2, times w_C^(C1 k2 c3) = (w_C^(C1 c3))^k2
+template <class W>
+__device__ __forceinline__ void wide_stage2(double2* U, const double2* __restrict__ tw) {
+  constexpr int C1 = W::C1, C2 = W::C2, C3 = W::C3, S1 = W::S1, FS = W::FS, PER = C1 * C3;
+#pragma unroll 1
+  for (int t = threadIdx.x; t < W::UF * PER; t += W::T) {
+    const int f = t / PER, r = t % PER, k1 = r / C3, c3 = r % C3;
+    double2* u = U + f * FS + k1 * S1 + c3;
+    double2 v[C2];
+#pragma unroll
+    for (int i = 0; i < C2; ++i) v[i] = u[i * C3];
+    double2 w[C2];
+    wide_powers<C2>(__ldg(tw + C1 * c3), w);
+    wide_fft<C2>(v);
+#pragma unroll
+    for (int k2 = 0; k2 < C2; ++k2) u[k2 * C3] = k2 ? cmul(v[k2], w[k2]) : v[k2];
+  }
+}
+
+__device__ __forceinline__ float wide_demod(int precise, float a, float b, float c, float d) {
+  return precise ? demod_pairs<true>(a, b, c, d) : demod_pairs<false>(a, b, c, d);
+}
+
+// Stage 3 of the unit's pairs with the discriminator, a column (j, k1, k2)
+// of both frames of pair j a thread, k1 fastest (the stores of a k3 are
+// consecutive): the even frame's y rounded to float32 and held, then the
+// odd frame's, paired; pair j < np into row j of `rows`.
+template <class W>
+__device__ __forceinline__ void wide_stage3(const double2* U, float* __restrict__ rows, int np,
+                                            int precise) {
+  constexpr int C = W::C, C1 = W::C1, C3 = W::C3, S1 = W::S1, FS = W::FS, ST = W::ST;
+#pragma unroll 1
+  for (int t = threadIdx.x; t < W::G * ST; t += W::T) {
+    const int j = t / ST, r = t % ST, k2 = r / C1, k1 = r % C1;
+    const double2* u = U + 2 * j * FS + k1 * S1 + k2 * C3;
+    double2 v[C3];
+    float yr[C3], yi[C3];
+#pragma unroll
+    for (int i = 0; i < C3; ++i) v[i] = u[i];
+    wide_fft<C3>(v);
+#pragma unroll
+    for (int k3 = 0; k3 < C3; ++k3) {
+      yr[k3] = __double2float_rn(v[k3].x);
+      yi[k3] = __double2float_rn(v[k3].y);
+    }
+#pragma unroll
+    for (int i = 0; i < C3; ++i) v[i] = u[FS + i];
+    wide_fft<C3>(v);
+    if (j < np) {
+#pragma unroll
+      for (int k3 = 0; k3 < C3; ++k3) {
+        rows[j * C + r + ST * k3] = wide_demod(precise, yr[k3], yi[k3],
+                                               __double2float_rn(v[k3].x),
+                                               __double2float_rn(v[k3].y));
+      }
+    }
+  }
+}
+
+// kSeq: stage 3 of frame `odd` of the pair in U, column (k1, k2) = thread:
+// the even frame's y into (yr, yi), the odd frame's paired with them into
+// row.
+template <class W>
+__device__ __forceinline__ void wide_stage3_seq(const double2* U, float* __restrict__ row,
+                                                int odd, float (&yr)[W::C3], float (&yi)[W::C3],
+                                                int precise) {
+  constexpr int C1 = W::C1, C3 = W::C3, S1 = W::S1, ST = W::ST;
+  const int r = threadIdx.x, k2 = r / C1, k1 = r % C1;
+  const double2* u = U + k1 * S1 + k2 * C3;
+  double2 v[C3];
+#pragma unroll
+  for (int i = 0; i < C3; ++i) v[i] = u[i];
+  wide_fft<C3>(v);
+  if (!odd) {
+#pragma unroll
+    for (int k3 = 0; k3 < C3; ++k3) {
+      yr[k3] = __double2float_rn(v[k3].x);
+      yi[k3] = __double2float_rn(v[k3].y);
+    }
+  } else {
+#pragma unroll
+    for (int k3 = 0; k3 < C3; ++k3) {
+      row[r + ST * k3] = wide_demod(precise, yr[k3], yi[k3], __double2float_rn(v[k3].x),
+                                    __double2float_rn(v[k3].y));
+    }
+  }
+}
+
+// CTA b takes units [b U / grid, (b + 1) U / grid) of the U = ceil(pairs /
+// G) units (unit u: pairs uG .. uG + G - 1, the last unit of the launch
+// maybe fewer).
+template <class W>
+__global__ void __launch_bounds__(W::T, W::CTAS)
+pfb_wide_kernel(const uint16_t* __restrict__ in, const float* __restrict__ hist,
+                const float* __restrict__ h, const double2* __restrict__ tw,
+                float* __restrict__ d, float* __restrict__ new_hist, long long n, int precise) {
+  extern __shared__ double2 wsm[];
+  constexpr int C = W::C, P = W::P, PC = P * C, NF = W::NF;
+  double2* U = wsm;
+  float2* Zo = reinterpret_cast<float2*>(reinterpret_cast<char*>(wsm) + W::kUBytes);
+  uint16_t* ring = reinterpret_cast<uint16_t*>(reinterpret_cast<char*>(Zo) + W::kZoBytes);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(reinterpret_cast<char*>(ring) + W::kRingBytes);
+  const long long M = n / C;  // frames, rows of the input
+  const long long pairs = M / 2;
+  const long long units = (pairs + W::G - 1) / W::G;
+
+  // the carried history, spread over the grid
+  for (long long i = static_cast<long long>(blockIdx.x) * W::T + threadIdx.x; i < PC;
+       i += static_cast<long long>(gridDim.x) * W::T) {
+    const float2 v = big_sample(in, hist, PC, n - PC + i);
+    new_hist[i] = v.x;
+    new_hist[PC + i] = v.y;
+  }
+
+  const long long ua = units * blockIdx.x / gridDim.x;
+  const long long ub = units * (blockIdx.x + 1) / gridDim.x;
+  const bool bulk = (reinterpret_cast<uintptr_t>(in) & 15) == 0;
+  if (bulk && threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar)) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  // the first unit's rows m0 - P .. m0 + NF - 1 (rows before 0 are the
+  // history's), then each next unit's NF new rows
+  wide_fill<W>(in, ring, bar, max(ua * NF - P, 0LL), min(ua * NF + NF, M), bulk);
+  __syncthreads();
+  float yr[W::C3], yi[W::C3];  // kSeq: the even frame's y of this thread's column
+  unsigned phase = 0;
+  for (long long u = ua; u < ub; ++u, phase ^= 1u) {
+    const long long m0 = u * NF;
+    if (bulk) ring_wait(bar, phase);
+    // kSeq's plans keep one filter: on the H100 a second copy without the
+    // history's check made the 2048 and 4096 plans slower, not faster
+    if (W::kSeq || m0 < P) {
+      wide_filter<W, true>(ring, hist, h, U, Zo, m0);
+    } else {
+      wide_filter<W, false>(ring, hist, h, U, Zo, m0);
+    }
+    __syncthreads();
+    if (u + 1 < ub) wide_fill<W>(in, ring, bar, m0 + NF, min(m0 + 2 * NF, M), bulk);
+    if constexpr (W::kSeq) {
+      float* row = d + u * C;
+#pragma unroll 1
+      for (int f = 0; f < 2; ++f) {
+        wide_stage1<W>(U, Zo, tw, f != 0);
+        __syncthreads();
+        wide_stage2<W>(U, tw);
+        __syncthreads();
+        wide_stage3_seq<W>(U, row, f, yr, yi, precise);
+        __syncthreads();
+      }
+    } else {
+      const int np = static_cast<int>(min(static_cast<long long>(W::G), pairs - u * W::G));
+      wide_stage1<W>(U, Zo, tw, false);
+      __syncthreads();
+      wide_stage2<W>(U, tw);
+      __syncthreads();
+      wide_stage3<W>(U, d + u * W::G * C, np, precise);
+      __syncthreads();
+    }
+  }
+}
+
+// The grid a launch of W takes on this device: the CTAs it holds at once
+// (asked once per device, when the shared-memory limit is raised), at most
+// one a unit.
+template <class W>
+int launch_wide(const uint16_t* in, const float* hist, const float* h, const double2* table,
+                float* d, float* new_hist, long long n, int precise, cudaStream_t s) {
+  auto kernel = pfb_wide_kernel<W>;
+  static int slots[kMaxDevices] = {};
+  const int dev = current_device();
+  if (dev < 0) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!slots[dev]) {
+    cudaError_t rc = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                          W::kSmem);
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+    int ctas = 0, sms = 0;
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, kernel, W::T, W::kSmem);
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+    rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+    if (ctas < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+    slots[dev] = ctas * sms;
+  }
+  const long long units = (n / (2LL * W::C) + W::G - 1) / W::G;
+  const unsigned grid =
+      static_cast<unsigned>(std::min(units, static_cast<long long>(slots[dev])));
+  kernel<<<grid, W::T, W::kSmem, s>>>(in, hist, h, table, d, new_hist, n, precise);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The kernel attributes of W: registers, local memory a thread (stack and
+// spills), dynamic shared memory, CTAs an SM.
+template <class W>
+int wide_attrs(int* out) {
+  cudaFuncAttributes a;
+  cudaError_t rc = cudaFuncGetAttributes(&a, pfb_wide_kernel<W>);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  rc = cudaFuncSetAttribute(pfb_wide_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                            W::kSmem);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  int ctas = 0;
+  rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, pfb_wide_kernel<W>, W::T, W::kSmem);
+  out[0] = a.numRegs;
+  out[1] = static_cast<int>(a.localSizeBytes);
+  out[2] = W::kSmem;
+  out[3] = ctas;
+  return static_cast<int>(rc);
+}
+
+constexpr int kNotCompiledIn = -1;
+
+// A compiled-in plan C1 x C2 x C3 (kTaps taps): its launch (attrs null) or
+// its attributes into attrs; kNotCompiledIn for any other plan.  The plans
+// are the wrapper's (fft_plan; WIDE_PLANS in ops/cuda/fused_pfb.py, which a
+// CPU test holds to this list).
+int wide_plan(const uint16_t* in, const float* hist, const float* h, const double2* table,
+              float* d, float* new_hist, long long n, int C1, int C2, int C3, int precise,
+              cudaStream_t s, int* attrs) {
+#define PFB_WIDE(a, b, c, g, seq, t, ctas)                                                   \
+  if (C1 == a && C2 == b && C3 == c) {                                                       \
+    using W = Wide<a, b, c, g, seq, t, ctas>;                                                \
+    return attrs ? wide_attrs<W>(attrs)                                                      \
+                 : launch_wide<W>(in, hist, h, table, d, new_hist, n, precise, s);           \
+  }
+  PFB_WIDE(3, 8, 16, 4, false, 96, 3)
+  PFB_WIDE(8, 8, 8, 2, false, 128, 4)
+  PFB_WIDE(8, 8, 16, 1, false, 128, 3)
+  PFB_WIDE(8, 16, 16, 1, true, 128, 2)
+  PFB_WIDE(16, 16, 16, 1, true, 256, 1)
+#undef PFB_WIDE
+  return kNotCompiledIn;
 }
 
 }  // namespace
@@ -1106,8 +1697,9 @@ int launch_big(const uint16_t* in, const float* hist, const float* h, const doub
 // device double[C + C1*RS][2], RS = C2 + 1 (C2 > 1) or 1: cos and sin of 2
 // pi i / C for i < C, then of 2 pi k1 c2 / C at C + k1*RS + c2.  Above:
 // C = C1 * C2 * C3 with C3 = C / (C1 * C2) and C2 <= 16; table: device
-// double[C][2], cos and sin of 2 pi i / C.  Launches on `stream`, does not
-// synchronise, returns cudaGetLastError().
+// double[C][2], cos and sin of 2 pi i / C: pfb_wide_kernel for the plans
+// compiled in with P = kTaps (wide_plan), else pfb_big_kernel.  Launches on
+// `stream`, does not synchronise, returns cudaGetLastError().
 extern "C" int fused_pfb_launch(const void* in, const void* hist, const void* h,
                                 const void* table, void* d, void* new_hist, long long n,
                                 int C, int C1, int C2, int P, int precise, void* stream) {
@@ -1127,7 +1719,43 @@ extern "C" int fused_pfb_launch(const void* in, const void* hist, const void* h,
   auto out = static_cast<float*>(d);
   auto nh = static_cast<float*>(new_hist);
   auto s = static_cast<cudaStream_t>(stream);
-  if (!staged) return launch_big(src, hi, hp, tb, out, nh, n, C, C1, C2, P, precise != 0, s);
+  if (!staged) {
+    const int rc = P == kTaps ? wide_plan(src, hi, hp, tb, out, nh, n, C1, C2, C / (C1 * C2),
+                                          precise, s, nullptr)
+                              : kNotCompiledIn;
+    return rc != kNotCompiledIn ? rc
+                                : launch_big(src, hi, hp, tb, out, nh, n, C, C1, C2, P,
+                                             precise != 0, s);
+  }
   return precise ? launch_plan<true>(src, hi, hp, tb, out, nh, n, C, C1, C2, P, s)
                  : launch_plan<false>(src, hi, hp, tb, out, nh, n, C, C1, C2, P, s);
+}
+
+// The attributes of the kernel a launch of C = C1 * C2 * C3 > kMaxStaged
+// channels of P taps runs (pfb_wide_kernel or pfb_big_kernel) into out[4]:
+// registers a thread, local memory a thread (stack and spills, bytes), dynamic
+// shared memory (bytes), CTAs an SM.  Returns a cudaError_t.
+extern "C" int fused_pfb_kernel_attrs(int C, int C1, int C2, int P, int* out) {
+  if (C <= kMaxStaged || C > kMaxChannels || C1 < 1 || C2 < 1 || C % (C1 * C2) || P < 1 ||
+      P > kMaxPhases) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (P == kTaps) {
+    const int rc = wide_plan(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 0, C1, C2,
+                             C / (C1 * C2), 0, nullptr, out);
+    if (rc != kNotCompiledIn) return rc;
+  }
+  const size_t smem = big_smem_bytes(make_big(C, C1, C2, P, 0));
+  cudaFuncAttributes a;
+  cudaError_t rc = cudaFuncGetAttributes(&a, pfb_big_kernel);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const int raised = raise_big_smem();
+  if (raised != cudaSuccess) return raised;
+  int ctas = 0;
+  rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, pfb_big_kernel, kThreads, smem);
+  out[0] = a.numRegs;
+  out[1] = static_cast<int>(a.localSizeBytes);
+  out[2] = static_cast<int>(smem);
+  out[3] = ctas;
+  return static_cast<int>(rc);
 }

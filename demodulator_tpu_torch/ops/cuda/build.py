@@ -64,6 +64,9 @@ _SIGNATURES = {
     # precise, stream
     "fused_pfb_launch": (_P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _I,
                          _P),
+    # C, C1, C2, P, out int[4] (registers, local bytes, shared bytes, CTAs
+    # an SM of the kernel a three-factor launch runs)
+    "fused_pfb_kernel_attrs": (_I, _I, _I, _I, ctypes.POINTER(_I)),
     # the patches after K3 (nbfm_patch.cu); a struct argument is its
     # address.  raw, audio, blocks, words, stage, audio FIR, n_pairs, w1_words,
     # wt_words, precise, normalize, stream

@@ -10,8 +10,10 @@ fast discriminator.  The kernel (``csrc/fused_pfb.cu``) takes the raw bytes
 :data:`MAX_CHANNELS` with ``T % 2C == 0`` runs.  Its DFT is a float64 FFT
 (:func:`fft_plan`): in two factors C = C1·C2 up to :data:`MAX_STAGED`
 channels, whose tiles the kernel stages whole in shared memory, and in
-three, C = C1·C2·C3, above, where a CTA takes one frame pair; every factor
-is read from one float64 table (:func:`fft_table`).
+three, C = C1·C2·C3, above: the grids of :data:`WIDE_PLANS` with the
+12-tap prototype on compiled-in plans, a CTA walking units of consecutive
+frame pairs over input rows staged by bulk copies, any other C a frame
+pair a CTA; every factor is read from one float64 table (:func:`fft_table`).
 
 Given CUDA tensors the wrapper launches the kernel, adds one to
 ``fused_pfb_demod.launches`` and returns; a C or P beyond the kernel's
@@ -20,6 +22,7 @@ Given CPU tensors it returns :func:`fused_pfb_demod_ref`.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 
@@ -33,14 +36,23 @@ from ..demod import _ATAN_COEFFS, _ATAN_COEFFS_FAST, atan2_poly
 from .fused_nbfm import _raise_on
 
 __all__ = ["MAX_CHANNELS", "MAX_PHASES", "MAX_FACTOR", "MAX_STAGED",
-           "SMEM_LIMIT", "fft_plan", "fft_table", "fused_pfb_demod",
-           "fused_pfb_demod_ref", "kernel_refusal", "pair_smem_bytes"]
+           "SMEM_LIMIT", "WIDE_PLANS", "WIDE_TAPS", "fft_plan", "fft_table",
+           "fused_pfb_demod", "fused_pfb_demod_ref", "kernel_attrs",
+           "kernel_refusal", "pair_smem_bytes"]
 
 MAX_CHANNELS = 4096  # csrc/fused_pfb.cu kMaxChannels
 MAX_STAGED = 256     # csrc/fused_pfb.cu kMaxStaged: the two-factor route
 MAX_PHASES = 32      # csrc/fused_pfb.cu kMaxPhases
 MAX_FACTOR = 16      # the largest FFT factor the kernel plans for
 SMEM_LIMIT = 232448  # dynamic shared memory an H100 CTA can have
+# The three-factor plans compiled in (csrc/fused_pfb.cu PFB_WIDE, with
+# WIDE_TAPS taps a branch): C -> (frame pairs a unit G, one frame's spectrum
+# in shared memory at a time, threads a CTA, CTAs an SM its registers are
+# held to).  The 6.25 kHz grids of 2.4, 3.2, 6.4, 12.8 and 25.6 Msps.
+WIDE_PLANS = {384: (4, False, 96, 3), 512: (2, False, 128, 4),
+              1024: (1, False, 128, 3), 2048: (1, True, 128, 2),
+              4096: (1, True, 256, 1)}
+WIDE_TAPS = 12       # csrc/fused_pfb.cu kTaps
 
 
 def _check(raw: torch.Tensor, hist: torch.Tensor, h, C: int):
@@ -160,14 +172,24 @@ def fft_table(C: int) -> np.ndarray:
     return np.stack([cos[idx], sin[idx]], axis=-1)
 
 
-def pair_smem_bytes(C: int) -> int:
-    """Shared memory of a CTA of the three-factor route (csrc/fused_pfb.cu
-    big_smem_bytes): the frame pair's float64 spectra, double2 [2, C1·S1]
-    with S1 = D, or D + 1 where D = C2·C3 is even, and its branch filter's
-    outputs, float2 [2, C].  197 120 bytes at C = 4096."""
+def pair_smem_bytes(C: int, P: int = WIDE_TAPS) -> int:
+    """Shared memory of a CTA of the three-factor route for C channels of P
+    taps a branch.  A compiled-in plan (:data:`WIDE_PLANS`, csrc/fused_pfb.cu
+    Wide::kSmem): the float64 spectra of the frames it holds at once,
+    double2 [F, C1·S1] (F = 2G, or 1), with S1 = D, or D + 1 where D = C2·C3
+    is even; the odd frame's float32 branch outputs, float2 [C], where F =
+    1; the staged input, P + 2G rows of C 16-bit words; a 16-byte mbarrier
+    (213 264 bytes at C = 4096).  Any other (big_smem_bytes): the frame
+    pair's spectra, double2 [2, C1·S1], and its branch outputs, float2 [2,
+    C]."""
     C1, C2, C3 = fft_plan(C)
     D = C2 * C3
-    return 16 * 2 * C1 * (D if D % 2 else D + 1) + 8 * 2 * C
+    S1 = D if D % 2 else D + 1
+    if C in WIDE_PLANS and P == WIDE_TAPS:
+        G, seq = WIDE_PLANS[C][:2]
+        return (16 * (1 if seq else 2 * G) * C1 * S1 + (8 * C if seq else 0)
+                + 2 * (P + 2 * G) * C + 16)
+    return 16 * 2 * C1 * S1 + 8 * 2 * C
 
 
 def kernel_refusal(C: int, P: int) -> str | None:
@@ -181,6 +203,22 @@ def kernel_refusal(C: int, P: int) -> str | None:
                 f"float64 spectrum (2·C·16 bytes, and its float32 branch "
                 f"outputs) in shared memory, {SMEM_LIMIT} bytes at most")
     return None
+
+
+def kernel_attrs(C: int, P: int = WIDE_TAPS) -> dict:
+    """The card's attributes of the kernel a three-factor launch of C
+    channels of P taps runs (``pfb_wide_kernel`` for a compiled-in plan,
+    else ``pfb_big_kernel``): registers a thread, local memory a thread
+    (stack and spills, bytes), dynamic shared memory (bytes), CTAs an SM.
+    Builds the library; needs a card."""
+    if C <= MAX_STAGED:
+        raise ValueError(f"C = {C} is on the two-factor route")
+    C1, C2 = fft_plan(C)[:2]
+    out = (ctypes.c_int * 4)()
+    _raise_on(build.load().fused_pfb_kernel_attrs(C, C1, C2, P, out),
+              "fused_pfb_kernel_attrs")
+    return dict(zip(("regs", "local_bytes", "smem_bytes", "ctas_per_sm"),
+                    out))
 
 
 @functools.cache

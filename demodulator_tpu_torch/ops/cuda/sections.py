@@ -1,7 +1,8 @@
 """Where K1's, K3's, K4's and K6's device time goes: each kernel timed on
 the card with sections cut out of its source.
 
-    python -m demodulator_tpu_torch.ops.cuda.sections [span] [pfb] [q1] [head]
+    python -m demodulator_tpu_torch.ops.cuda.sections [span] [pfb] [q1]
+        [head] [--parent DIR]
 
 builds variants of ``csrc/fused_nbfm.cu`` and ``csrc/fused_nbfm_cplx.cu``
 (with ``csrc/nbfm_span.cuh`` cut), ``csrc/fused_pfb.cu`` and
@@ -19,7 +20,18 @@ shared-memory exchange between warps instead of overlapping warp spans
 (each alternative checked equal to the package's kernel).  K6 at C = 64 on one 0.25 s block of 12.288 Msps
 (bank64) and at C = 4 on a 10-block chunk of 768 ksps (bank4),
 cumulatively: the output alone, then staging, the branch filter, the
-discriminator, the FFT (the whole kernel).  K4 at 16 and 256 blocks of
+discriminator, the FFT (the whole kernel); and K6's three-factor
+route at C = 512, 1024, 2048 and 4096 on one 0.25 s block of 6.25 kHz
+channels (3.2 to 25.6 Msps), cumulatively: the output alone, then the
+branch filter (with its input staging), stage 1, stage 2, stage 3 with the
+discriminator (the whole kernel), for ``pfb_big_kernel`` (the route of any
+plan not compiled in, which a variant makes these C take) and for
+``pfb_wide_kernel`` (the compiled-in plans), with every variant's
+registers, stack and spills as ``-Xptxas -v`` reports them; with
+``--parent DIR`` (a checkout's ``demodulator_tpu_torch/csrc``) also that
+tree's K6 at every C of ``WIDE_TIMED`` and at bank64's and bank4's C,
+timed in turns with this tree's as built (parent, this, this, parent),
+each held to the plain version.  K4 at 16 and 256 blocks of
 256 KiB, with tiles of 1024, 2048 and 4096 step pairs, and at Q1_TILE
 without its block look-back.  The variants compute wrong outputs; only
 their times mean anything.  ``head``: K1 (precise and fast) and K4
@@ -90,6 +102,70 @@ def pfb_variants() -> dict:
                                 "        out[q] = 0.0f;"),
             "+ staging": no_bf, "+ branch filter": no_demod,
             "+ discriminator": no_fft, "+ FFT (whole kernel)": src}
+
+
+# K6's three-factor route: the C timed, and what replaces stage 3 in the
+# variants that cut it (each frame's spectrum, or the filter's outputs,
+# copied out, so nothing before it is dead)
+WIDE_CUT_C = (512, 1024, 2048, 4096)
+WIDE_TIMED = (384, 512, 1024, 2048, 4096)
+_WIDE_OUT = """template <class W>
+__device__ __forceinline__ void wide_out(const double2* U, float* rows,
+                                         int np) {
+  for (int k = threadIdx.x; k < np * W::C; k += W::T) {
+    rows[k] = static_cast<float>(U[k].x);
+  }
+}
+
+"""
+
+
+def wide_variants() -> dict:
+    """{label: fused_pfb.cu text}: ``pfb_big_kernel`` (every three-factor
+    plan forced onto it) and ``pfb_wide_kernel`` cut cumulatively."""
+    # no two-factor kernel is instantiated: the variants build in a
+    # fraction of the file's time
+    args = "(src, hi, hp, tb, out, nh, n, C, C1, C2, P, s)"
+    src = _sub((build.CSRC / "fused_pfb.cu").read_text(),
+               f"  return precise ? launch_plan<true>{args}\n"
+               f"                 : launch_plan<false>{args};",
+               "  return static_cast<int>(cudaErrorInvalidValue);")
+    big = _sub(src, "const int rc = P == kTaps ? wide_plan(",
+               "const int rc = false ? wide_plan(")
+    # pfb_big_kernel: stage 3 -> the spectra and z copied out; stage 2;
+    # stage 1; the branch filter
+    b3 = _cut(big, "  switch (b.C3) {", "\n}\n\nconstexpr int kMaxDevices",
+              "  for (int k = threadIdx.x; k < C; k += kThreads) {\n"
+              "    row[k] = static_cast<float>(U[k].x) + Z[k].x;\n  }")
+    row = "  float* row = d + static_cast<long long>"
+    b2 = _cut(b3, "  if (b.C2 > 1) {", row)
+    b1 = _cut(b2, "  switch (b.C1) {", row)
+    b0 = _cut(b1, "  // branch filter: the odd frame", row)
+    # pfb_wide_kernel: the same cuts; the output only also without the
+    # input's staging
+    w3 = _sub(_sub(_sub(src, "// CTA b takes units [b U / grid", _WIDE_OUT
+                        + "// CTA b takes units [b U / grid"),
+                   "      wide_stage3<W>(U, d + u * W::G * C, np, precise);",
+                   "      wide_out<W>(U, d + u * W::G * C, np);"),
+              "        wide_stage3_seq<W>(U, row, f, yr, yi, precise);",
+              "        if (f) wide_out<W>(U, row, 1);")
+    w2 = _sub(w3, "wide_stage2<W>(U, tw);", "")
+    w1 = _sub(_sub(w2, "wide_stage1<W>(U, Zo, tw, f != 0);", ""),
+              "wide_stage1<W>(U, Zo, tw, false);", "")
+    w0 = _cut(w1, "    if (bulk) ring_wait(bar, phase);",
+              "    if constexpr (W::kSeq) {")
+    w0 = _cut(w0, "  wide_fill<W>(in, ring, bar, max(ua * NF - P, 0LL)",
+              "  float yr[W::C3], yi[W::C3];")
+    out = {}
+    for name, texts in (("pfb_big_kernel", (b0, b1, b2, b3, big)),
+                        ("pfb_wide_kernel", (w0, w1, w2, w3, src))):
+        for label, text in zip(WIDE_CUTS, texts):
+            out[f"{name}: {label}"] = text
+    return out
+
+
+WIDE_CUTS = ("output only", "+ branch filter", "+ stage 1", "+ stage 2",
+             "+ stage 3 with the discriminator (whole kernel)")
 
 
 def q1_variants() -> dict:
@@ -219,11 +295,35 @@ def head_variants(name: str) -> dict:
     return out
 
 
-def ptxas_regs(variants: dict, name: str, tmp: Path) -> dict:
-    """{variant: {kernel (demangled, without its parameters): "R regs,
-    S B stack, spills L/S"}} from ``nvcc -Xptxas -v`` on each variant's
-    ``name``.cu with the package's flags."""
+def _ptxas_rows(stderr: str) -> dict:
+    """{kernel (demangled, without its parameters): "R regs, S B stack,
+    spills L/S"} from ``-Xptxas -v``'s report."""
     import re
+    rows, cur = {}, None
+    for line in stderr.splitlines():
+        m = re.search(r"Function properties for (\w+)", line)
+        if m:
+            cur = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                      r"stores, (\d+) bytes spill loads", line)
+        if m and cur:
+            rows[cur] = f"{m.group(1)} B stack, spills " \
+                        f"{m.group(3)}/{m.group(2)}"
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            rows[cur] = f"{m.group(1)} regs, {rows.get(cur, '')}"
+    names = subprocess.run(["c++filt"], input="\n".join(rows),
+                           capture_output=True, text=True).stdout.split("\n")
+    return {re.sub(r"\(.*", "", n.replace("(anonymous namespace)::", ""))
+            + (" with its head" if re.search(r"PatchAudioFir|Q1Head", n)
+               else ""): v
+            for n, v in zip(names, rows.values()) if "regs" in v}
+
+
+def ptxas_regs(variants: dict, name: str, tmp: Path) -> dict:
+    """{variant: {kernel: "R regs, S B stack, spills L/S"}} from ``nvcc
+    -Xptxas -v`` on each variant's ``name``.cu with the package's flags."""
     out = {}
     for i, (label, text) in enumerate(variants.items()):
         d = tmp / f"regs_{name}{i}"
@@ -236,43 +336,26 @@ def ptxas_regs(variants: dict, name: str, tmp: Path) -> dict:
                            capture_output=True, text=True)
         if r.returncode:
             raise RuntimeError(f"nvcc failed on {label!r}:\n{r.stderr}")
-        rows, cur = {}, None
-        for line in r.stderr.splitlines():
-            m = re.search(r"Function properties for (\w+)", line)
-            if m:
-                cur = m.group(1)
-                continue
-            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
-                          r"stores, (\d+) bytes spill loads", line)
-            if m and cur:
-                rows[cur] = f"{m.group(1)} B stack, spills " \
-                            f"{m.group(3)}/{m.group(2)}"
-            m = re.search(r"Used (\d+) registers", line)
-            if m and cur:
-                rows[cur] = f"{m.group(1)} regs, {rows.get(cur, '')}"
-        names = subprocess.run(["c++filt"], input="\n".join(rows),
-                               capture_output=True, text=True).stdout.split("\n")
-        out[label] = {
-            re.sub(r"\(.*", "", n.replace("(anonymous namespace)::", ""))
-            + (" with its head" if re.search(r"PatchAudioFir|Q1Head", n)
-               else ""): v
-            for n, v in zip(names, rows.values()) if "regs" in v}
+        out[label] = _ptxas_rows(r.stderr)
     return out
 
 
-def _compile(variants: dict, name: str, tmp: Path) -> dict:
+def _compile(variants: dict, name: str, tmp: Path, regs=None) -> dict:
     """{variant: ctypes library}, all compiled at once.  A variant is the
-    text of ``name``.cu, or {file: text} of the files it replaces."""
+    text of ``name``.cu, or {file: text} of the files it replaces.  With a
+    dict ``regs``: built with ``-Xptxas -v``, each variant's report into
+    regs[variant] as :func:`ptxas_regs` gives it."""
     procs = []
     for i, (label, files) in enumerate(variants.items()):
-        d = tmp / f"{name}{i}"
-        d.mkdir()
+        # a fresh directory a variant: several sets of one source share tmp
+        d = Path(tempfile.mkdtemp(prefix=f"{name}{i}_", dir=tmp))
         if isinstance(files, str):
             files = {f"{name}.cu": files}
         for f in (f"{name}.cu", *build.HEADERS):
             (d / f).write_text(files.get(f, (build.CSRC / f).read_text()))
-        cmd = [build.nvcc(), *build.NVCC_FLAGS, "-shared", "-o",
-               str(d / "lib.so"), str(d / f"{name}.cu")]
+        cmd = [build.nvcc(), *build.NVCC_FLAGS,
+               *(("-Xptxas", "-v") if regs is not None else ()), "-shared",
+               "-o", str(d / "lib.so"), str(d / f"{name}.cu")]
         procs.append((label, d, subprocess.Popen(
             cmd, stderr=subprocess.PIPE, text=True)))
     libs = {}
@@ -280,6 +363,8 @@ def _compile(variants: dict, name: str, tmp: Path) -> dict:
         _, err = p.communicate()
         if p.returncode:
             raise RuntimeError(f"nvcc failed on variant {label!r}:\n{err}")
+        if regs is not None:
+            regs[label] = _ptxas_rows(err)
         libs[label] = ctypes.CDLL(str(d / "lib.so"))
     return libs
 
@@ -402,6 +487,91 @@ def time_pfb(libs: dict, dev) -> dict:
                     raise RuntimeError(f"fused_pfb {label}: CUDA error {rc}")
             out[f"K6 {run} C={C}: {label}"] = round(
                 device_us(call, "pfb_kernel"), 2)
+    return out
+
+
+def _wide_inputs(C: int, dev, n: int | None = None):
+    """n samples (default: one 0.25 s block of C 6.25 kHz channels) of
+    seeded random bytes (the kernels' work does not depend on the data) and
+    the launch's buffers."""
+    pfb = PolyphaseChannelizer(C)
+    n = n or int(0.25 * C * 6250.0) // (2 * C) * (2 * C)
+    rng = np.random.default_rng(C)
+    raw = torch.from_numpy(rng.integers(0, 256, 2 * n, np.uint8)).to(dev)
+    hist = torch.from_numpy(rng.standard_normal((2, pfb.hist_len)).astype(
+        np.float32)).to(dev)
+    h = torch.from_numpy(pfb._h_np.astype(np.float32)).to(dev)
+    d = torch.empty((n // (2 * C), C), device=dev)
+    return pfb, n, raw, hist, h, d, torch.empty_like(hist)
+
+
+def _pfb_call(lib, C, n, raw, hist, h, d, nh, P, label):
+    fn = lib.fused_pfb_launch
+    fn.argtypes = build._SIGNATURES["fused_pfb_launch"]
+    C1, C2 = fused_pfb.fft_plan(C)[:2]
+    table = fused_pfb._table(C, raw.device)
+
+    def call():
+        rc = fn(raw.data_ptr(), hist.data_ptr(), h.data_ptr(),
+                table.data_ptr(), d.data_ptr(), nh.data_ptr(), n, C, C1, C2,
+                P, 0, torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"fused_pfb {label} C={C}: CUDA error {rc}")
+    return call
+
+
+def _holds_bars(pfb, C, raw, hist, d, nh) -> bool:
+    """d and the new history against the plain version: angle-wrapped
+    max|err| < 0.01 rad, > 80 dB, the history bit-equal."""
+    want, want_h = fused_pfb.fused_pfb_demod_ref(raw, hist, pfb._h_np, C)
+    e = torch.remainder(d.double() - want.double() + np.pi, 2 * np.pi) - np.pi
+    snr = 10 * np.log10(float((want.double() ** 2).mean())
+                        / max(float((e ** 2).mean()), 1e-300))
+    return bool(float(e.abs().max()) < 0.01 and snr > 80.0
+                and torch.equal(nh, want_h))
+
+
+def time_wide(libs: dict, dev, parent=None) -> dict:
+    """The cumulative cuts at WIDE_CUT_C; with ``parent`` (a library of
+    another tree's fused_pfb.cu), that tree's K6 and this one's at every C
+    of WIDE_TIMED in turns, parent, this, this, parent."""
+    out = {}
+    for C in WIDE_CUT_C:
+        pfb, n, raw, hist, h, d, nh = _wide_inputs(C, dev)
+        for label, lib in libs.items():
+            call = _pfb_call(lib, C, n, raw, hist, h, d, nh, pfb.P, label)
+            key = f"K6 C={C} {label}"
+            out[key] = round(device_us(call, label.split(":")[0]), 2)
+            print(f"{key}: {out[key]} us", file=sys.stderr, flush=True)
+            if "whole kernel" in label:
+                call()
+                out[f"{key}: holds the bars"] = _holds_bars(pfb, C, raw, hist,
+                                                            d, nh)
+        del raw, d
+    if parent is None:
+        return out
+    this = build.load()
+    # the three-factor route's C, then the staged route's bank64 block and
+    # bank4 chunk (time_pfb's)
+    for C, n in ([(C, None) for C in WIDE_TIMED]
+                 + [(64, 3_072_000), (4, 1_920_000)]):
+        pfb, n, raw, hist, h, d, nh = _wide_inputs(C, dev, n)
+        times = {"parent": [], "this": []}
+        for who in ("parent", "this", "this", "parent"):
+            lib, pat = ((parent, "pfb_big_kernel") if who == "parent"
+                        else (this, "pfb_wide_kernel"))
+            if C <= fused_pfb.MAX_STAGED:
+                pat = "pfb_kernel"
+            call = _pfb_call(lib, C, n, raw, hist, h, d, nh, pfb.P, who)
+            times[who].append(round(device_us(call, pat), 2))
+            call()
+            out[f"K6 C={C} {who}: holds the bars"] = _holds_bars(
+                pfb, C, raw, hist, d, nh) and out.get(
+                f"K6 C={C} {who}: holds the bars", True)
+        for who, ts in times.items():
+            out[f"K6 C={C} {who} (in turns)"] = ts
+        print(f"K6 C={C} in turns: {times}", file=sys.stderr, flush=True)
+        del raw, d
     return out
 
 
@@ -529,8 +699,13 @@ def time_head(k1_libs: dict, q1_libs: dict, dev) -> dict:
 
 
 def main(argv=None) -> int:
-    kernels = set(sys.argv[1:] if argv is None else argv) or {"span", "pfb",
-                                                              "q1", "head"}
+    args = list(sys.argv[1:] if argv is None else argv)
+    parent = None
+    if "--parent" in args:
+        i = args.index("--parent")
+        parent = Path(args[i + 1])
+        del args[i: i + 2]
+    kernels = set(args) or {"span", "pfb", "q1", "head"}
     if not kernels <= {"span", "pfb", "q1", "head"}:
         raise SystemExit(f"sections: unknown kernels {sorted(kernels)}")
     if not torch.cuda.is_available():
@@ -546,6 +721,22 @@ def main(argv=None) -> int:
         if "pfb" in kernels:
             res.update(time_pfb(_compile(pfb_variants(), "fused_pfb", tmp),
                                 dev))
+            # the three-factor route
+            variants, regs = wide_variants(), {}
+            if parent is not None:
+                variants["parent"] = {
+                    f: (parent / f).read_text()
+                    for f in ("fused_pfb.cu", *build.HEADERS)
+                    if (parent / f).exists()}
+            libs = _compile(variants, "fused_pfb", tmp, regs)
+            par = libs.pop("parent", None)
+            for label, rows in regs.items():
+                kern = "pfb_big_kernel" if label == "parent" else \
+                    label.split(":")[0]
+                for name, v in rows.items():
+                    if kern in name:
+                        res[f"{label}: {name}"] = v
+            res.update(time_wide(libs, dev, par))
         if "q1" in kernels:
             res.update(time_q1(_compile(q1_variants(), "fused_nbfm_q1", tmp),
                                dev))

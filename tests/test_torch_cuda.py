@@ -384,11 +384,11 @@ def _wrapped_ok(want, got):
 # every FFT plan: radix and direct factors, up to 256 channels, and 17 and
 # 251 (primes above 16: the direct DFT, C2 = 1); above 256 the three-factor
 # route: a large direct last stage (257, 278, 771), a large direct first one
-# (323 = 17·1·19), small direct stages (384, 1000), radix stages (512, 1024,
-# 4096)
+# (323 = 17·1·19), small direct stages (384, 768, 1000), radix stages (512,
+# 1024, 2048, 4096); 384, 512, 1024, 2048 and 4096 on the compiled-in plans
 @pytest.mark.parametrize("C", [2, 3, 4, 5, 8, 12, 16, 17, 32, 48, 64, 128,
-                               251, 256, 257, 278, 323, 384, 512, 771, 1000,
-                               1024, 4096])
+                               251, 256, 257, 278, 323, 384, 512, 768, 771,
+                               1000, 1024, 2048, 4096])
 @pytest.mark.parametrize("data", ["bank", "noise"])
 def test_pfb_kernel_matches_ref(cuda_device, data, C):
     pfb = PolyphaseChannelizer(C)
@@ -482,7 +482,7 @@ def test_pfb_kernel_on_block_tpu_kernel_could_not_tile(cuda_device):
     assert torch.equal(h, hw)
 
 
-@pytest.mark.parametrize("C", [4, 12, 17, 64])
+@pytest.mark.parametrize("C", [4, 12, 17, 64, 384, 4096])
 def test_pfb_kernel_chunked_equals_per_block(cuda_device, C):
     """Each output's arithmetic does not depend on where the blocks are
     cut: one launch over 5 blocks is bit-equal to 5 launches."""
@@ -499,6 +499,60 @@ def test_pfb_kernel_chunked_equals_per_block(cuda_device, C):
         parts.append(d)
     assert torch.equal(whole, torch.cat(parts))
     assert torch.equal(hw, h)
+
+
+# the compiled-in three-factor plans over pair counts that are and are not
+# a multiple of a unit (G = 4 pairs at 384, 2 at 512, 1 at 4096), with one
+# CTA, a few and every CTA the card holds; the precise discriminator too
+@pytest.mark.parametrize("pairs", [1, 97, 781])
+@pytest.mark.parametrize("C", [384, 512, 4096])
+def test_pfb_wide_kernel_pair_counts(cuda_device, C, pairs):
+    """Two streamed blocks of `pairs` frame pairs of a bank capture: one
+    launch a call, the output at the bars against the plain version, the
+    history bit-equal."""
+    pfb = PolyphaseChannelizer(C)
+    n = 2 * C * pairs
+    hist_k = torch.zeros((2, pfb.hist_len), device=cuda_device)
+    hist_r = hist_k.clone()
+    for blk in range(2):
+        raw = torch.from_numpy(_bank_iq(C * 6250.0, (0.0, 2 * 6250.0,
+                                                     -6250.0), n, seed=blk,
+                                        dev=1000.0)).to(cuda_device)
+        for precise in ((False, True) if pairs == 97 else (False,)):
+            n0 = k6.fused_pfb_demod.launches
+            d, h = k6.fused_pfb_demod(raw, hist_k, pfb._h_np, C, precise)
+            torch.cuda.synchronize()
+            assert k6.fused_pfb_demod.launches == n0 + 1
+            want, hw = k6.fused_pfb_demod_ref(raw, hist_r, pfb._h_np, C,
+                                              precise)
+            ok, detail = _wrapped_ok(want, d)
+            assert ok, (precise, detail)
+            assert torch.equal(h, hw)
+        hist_k, hist_r = h, hw
+
+
+# input bytes 2 and 8 bytes past a 16-byte boundary: the compiled-in plans'
+# threads copy the rows the bulk copies would
+@pytest.mark.parametrize("offset", [2, 8])
+@pytest.mark.parametrize("C", [384, 4096])
+def test_pfb_wide_kernel_unaligned_input(cuda_device, C, offset):
+    pfb = PolyphaseChannelizer(C)
+    n = 2 * C * 37
+    buf = torch.zeros(2 * n + 16, dtype=torch.uint8, device=cuda_device)
+    buf[offset: offset + 2 * n] = torch.from_numpy(
+        _bank_iq(C * 6250.0, (6250.0,), n, seed=offset, dev=1000.0)).to(
+        cuda_device)
+    raw = buf[offset: offset + 2 * n]
+    assert raw.data_ptr() % 16 == offset
+    hist = torch.from_numpy(np.random.default_rng(C).standard_normal(
+        (2, pfb.hist_len)).astype(np.float32)).to(cuda_device)
+    d, h = k6.fused_pfb_demod(raw, hist, pfb._h_np, C)
+    want, hw = k6.fused_pfb_demod_ref(raw, hist, pfb._h_np, C)
+    ok, detail = _wrapped_ok(want, d)
+    assert ok, detail
+    assert torch.equal(h, hw)
+    aligned, _ = k6.fused_pfb_demod(raw.clone(), hist, pfb._h_np, C)
+    assert torch.equal(aligned, d)
 
 
 def test_pfb_kernel_refuses_too_many_channels(cuda_device):

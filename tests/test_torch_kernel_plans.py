@@ -30,9 +30,10 @@ from demodulator_tpu_torch.ops.conditioning import NORM_SCALE, split_iq
 from demodulator_tpu_torch.ops.demod import (_ATAN_COEFFS, _ATAN_COEFFS_FAST,
                                              atan2_poly)
 from demodulator_tpu_torch.ops.cuda import fused_nbfm as k
+from demodulator_tpu_torch.ops.channelizer import PolyphaseChannelizer
 from demodulator_tpu_torch.ops.cuda.fused_pfb import (
-    MAX_CHANNELS, MAX_FACTOR, MAX_STAGED, SMEM_LIMIT, fft_plan, fft_table,
-    pair_smem_bytes)
+    MAX_CHANNELS, MAX_FACTOR, MAX_STAGED, SMEM_LIMIT, WIDE_PLANS, WIDE_TAPS,
+    fft_plan, fft_table, fused_pfb_demod_ref, pair_smem_bytes)
 
 # the two-factor route's channel counts; above, the three-factor route's
 CHANNELS = range(1, MAX_STAGED + 1)
@@ -174,7 +175,10 @@ def test_fft_plan_three_factors_up_to_max_channels():
         (1, 1, 257), (1, 2, 139), (17, 1, 19), (3, 8, 16), (8, 8, 8),
         (1, 3, 257), (10, 10, 10), (8, 8, 16), (11, 13, 21), (17, 1, 239),
         (23, 2, 89), (16, 16, 16)]
-    assert pair_smem_bytes(4096) == 197120
+    # the compiled-in plan (one frame's spectra, Zo, 14 staged rows); any
+    # other P runs pfb_big_kernel (a pair's spectra and branch outputs)
+    assert pair_smem_bytes(4096) == 213264
+    assert pair_smem_bytes(4096, 7) == 197120
 
 
 def test_fft_table_three_factors_is_exact_cos_sin():
@@ -232,6 +236,246 @@ def test_three_stage_order_matches_inverse_fft(C):
     want = C * np.fft.ifft(z, axis=-1)                         # the +j sign
     err = np.max(np.abs(_three_stage(z, C) - want))
     assert err <= 1e-12 * np.max(np.abs(want)), (C, err)
+
+
+_PFB_SRC = (Path(__file__).resolve().parents[1] / "demodulator_tpu_torch"
+            / "csrc" / "fused_pfb.cu")
+
+
+def test_compiled_wide_plans_are_the_wrappers_plans():
+    """The three-factor plans compiled in (PFB_WIDE) are the wrapper's
+    factorisations of the 6.25 kHz grids, with the unit, threads and CTAs
+    an SM of WIDE_PLANS; each needs the shared memory pair_smem_bytes
+    says, within the card's; stages 1 and 2 have a column a thread or more,
+    stage 3 at least half as many columns as threads (a column a thread
+    where one frame is held)."""
+    src = _PFB_SRC.read_text()
+    body = src[src.index("#define PFB_WIDE"):src.index("#undef PFB_WIDE")]
+    rows = re.findall(r"PFB_WIDE\((\d+), (\d+), (\d+), (\d+), (true|false), "
+                      r"(\d+), (\d+)\)", body)
+    got = {int(a) * int(b) * int(c): ((int(a), int(b), int(c)),
+                                      (int(g), seq == "true", int(t),
+                                       int(k)))
+           for a, b, c, g, seq, t, k in rows}
+    assert set(got) == set(WIDE_PLANS) == {384, 512, 1024, 2048, 4096}
+    for C, (plan, consts) in got.items():
+        assert plan == fft_plan(C) and consts == WIDE_PLANS[C], C
+        G, seq, T, ctas = consts
+        C1, C2, C3 = plan
+        assert pair_smem_bytes(C) <= SMEM_LIMIT // ctas, C
+        frames = 1 if seq else 2 * G
+        assert frames * C2 * C3 >= T and frames * C1 * C3 >= T, C
+        assert (C1 * C2 == T) if seq else (2 * G * C1 * C2 >= T), C
+    # a plan compiled in runs only with the prototype's taps
+    assert re.search(r"const int rc = P == kTaps \? wide_plan\(", src)
+
+
+def test_wide_stage_factors_are_the_tables():
+    """kW16 and kW3, the compiled-in plans' stage factors, are the table's
+    entries w_C^(m·C/16) and w_C^(m·C/3) that pfb_big_kernel reads: bit for
+    bit where C / n is a power of two (numpy's 2π·i/C is then 2π·m/n
+    exactly), else within 2e-15 (kW16 at C = 384)."""
+    src = _PFB_SRC.read_text()
+    for name, n in (("kW16", 16), ("kW3", 3)):
+        body = src[src.index(f"__constant__ double2 {name}["):]
+        body = body[:body.index(";")]
+        vals = [float.fromhex(v) for v in
+                re.findall(r"(-?0x[0-9a-f.]+p[-+]\d+)", body)]
+        got = np.array(vals).reshape(n, 2)
+        for C, (C1, C2, C3) in ((C, fft_plan(C)) for C in WIDE_PLANS):
+            if n in (C1, C2, C3) or (n == 16 and C % 16 == 0):
+                want = fft_table(C)[np.arange(n) * (C // n)]
+                if (C // n) & (C // n - 1) == 0:
+                    np.testing.assert_array_equal(got, want,
+                                                  err_msg=f"{name} {C}")
+                else:
+                    np.testing.assert_allclose(got, want, rtol=0, atol=2e-15,
+                                               err_msg=f"{name} {C}")
+
+
+def _cond16(w):
+    """16-bit words' shiftOrigin conditioning (I the low byte, Q the high)."""
+    f32 = np.float32
+    return ((((w & 255) + 1) % 256).astype(f32) - f32(128),
+            ((((w >> 8) & 255) + 1) % 256).astype(f32) - f32(128))
+
+
+def _stage_dft(w, n, stride):
+    """A stage's factors w_n^(k·c) = table entry (k·c mod n)·stride."""
+    k = np.arange(n)
+    return w[(k[:, None] * k[None, :]) % n * stride]
+
+
+def _powers(w, n):
+    """wide_powers: w^k for k < n [..., n] by the kernel's squarings and
+    products, from w [...]."""
+    p = [np.ones_like(w), w]
+    for k in range(2, n):
+        p.append(p[k - 1] * w if k % 2 else p[k // 2] * p[k // 2])
+    return np.stack(p[:n], -1)
+
+
+def _wide_walk(raw, hist, h, C, grid, precise=False):
+    """pfb_wide_kernel's walk in numpy: CTA b's run of units; the ring of
+    P + 2G rows filled as the bulk copies fill it, each slot's row checked
+    at every read, rows before sample 0 from the history; the branch
+    filter's sliding window in float32, tap by tap; each stage's columns as
+    the threads split them (every column exactly once), in float64 in U's
+    layout; kSeq's Zo and the even frame's held y; stage 3 rounded to
+    float32, the plain discriminator.  → (d, z [M, C] complex64 of the
+    filter, y [M, C] complex128 of the FFT, natural k)."""
+    f32 = np.float32
+    G, seq, T, _ = WIDE_PLANS[C]
+    C1, C2, C3 = fft_plan(C)
+    P = h.shape[0]
+    D, ST = C2 * C3, C1 * C2
+    S1 = D if D % 2 else D + 1
+    NF = 2 * G
+    RING, UF = P + NF, 1 if seq else NF
+    words = raw.view(np.uint16)
+    M = len(words) // C
+    pairs = M // 2
+    units = -(-pairs // G)
+    w = fft_table(C) @ np.array([1.0, 1j])
+    d = np.full((pairs, C), np.nan, f32)
+    z_all = np.full((M, C), np.nan, np.complex64)
+    y_all = np.full((M, C), np.nan, complex)
+    c = np.arange(C)
+    e = (c > 0).astype(int)
+    pos = np.where(e == 1, C - c, 0)
+    k3s = ST * np.arange(C3)[None, :]
+
+    def tasks(n):
+        """thread t's tasks t, t + T, ...: every task below n once"""
+        got = np.concatenate([np.arange(t, n, T) for t in range(T)])
+        assert np.array_equal(np.sort(got), np.arange(n))
+        return got
+
+    grid = min(grid, units)          # launch_wide: at most a CTA a unit
+    for b in range(grid):
+        ua, ub = units * b // grid, units * (b + 1) // grid
+        assert ub > ua
+        ring = np.zeros((RING, C), np.uint16)
+        slot_row = np.full(RING, -1)
+
+        def fill(ra, rb):
+            for r in range(max(ra, 0), min(rb, M)):
+                ring[r % RING] = words[r * C:(r + 1) * C]
+                slot_row[r % RING] = r
+
+        fill(ua * NF - P, ua * NF + NF)
+        for u in range(ua, ub):
+            m0 = u * NF
+
+            def x(q):            # sample (m0 + q)C - c, every c
+                s_ = (m0 + q) * C - c
+                row = m0 + q - e
+                xi, xq = np.full(C, np.nan, f32), np.full(C, np.nan, f32)
+                old = s_ < 0
+                xi[old] = hist[0, P * C + s_[old]]
+                xq[old] = hist[1, P * C + s_[old]]
+                # rows from M on: a short unit's frames past the block,
+                # read from stale slots, never stored
+                new = ~old & (row < M)
+                sl = row[new] % RING
+                assert np.array_equal(slot_row[sl], row[new])
+                xi[new], xq[new] = _cond16(ring[sl, pos[new]])
+                return xi, xq
+
+            win = {q: x(q) for q in range(-(P - 1), NF)}
+            z = np.empty((NF, C), np.complex64)
+            for r in range(NF):
+                ar, ai = h[0] * win[r][0], h[0] * win[r][1]
+                for p in range(1, P):
+                    ar = ar + h[p] * win[r - p][0]
+                    ai = ai + h[p] * win[r - p][1]
+                assert ar.dtype == ai.dtype == f32
+                z[r] = ar + 1j * ai
+            live = [f for f in range(NF) if m0 + f < M]
+            z_all[m0 + np.array(live)] = z[live]
+            fill(m0 + NF, m0 + 2 * NF)                 # the next unit's rows
+            held = None
+            for fs in ([0], [1]) if seq else (list(range(NF)),):
+                U = np.full((UF, C1, S1), np.nan, complex)
+                U[:, :, :D] = z[fs].reshape(UF, C1, D)  # kSeq frame 1: Zo
+                t = tasks(UF * D)                       # stage 1
+                f, dd = t // D, t % D
+                y = U[f, :, dd] @ _stage_dft(w, C1, D).T
+                U[f, :, dd] = y * _powers(w[dd], C1)      # w_C^(k1 d)
+                t = tasks(UF * C1 * C3)                 # stage 2
+                f, r = t // (C1 * C3), t % (C1 * C3)
+                k1, c3 = (r // C3)[:, None], (r % C3)[:, None]
+                idx = c3 + C3 * np.arange(C2)[None, :]
+                y = U[f[:, None], k1, idx] @ _stage_dft(w, C2, C1 * C3).T
+                U[f[:, None], k1, idx] = y * _powers(w[C1 * c3[:, 0]], C2)
+                # stage 3: a column (j, k1, k2) of both frames of pair j,
+                # or (k1, k2) of the frame held
+                t = tasks(ST if seq else G * ST)
+                j, r = t // ST, t % ST
+                k1 = (r % C1)[:, None]
+                idx = (r // C1)[:, None] * C3 + np.arange(C3)[None, :]
+                ys = []
+                for fr in ((0,) if seq else (0, 1)):
+                    uf = np.zeros_like(j) if seq else 2 * j + fr
+                    ys.append(U[uf[:, None], k1, idx] @ _stage_dft(
+                        w, C3, C1 * C2).T)
+                    frame = m0 + (np.full_like(j, fs[0]) if seq
+                                  else 2 * j + fr)
+                    ok = frame < M
+                    y_all[frame[ok][:, None], r[ok][:, None] + k3s] = \
+                        ys[-1][ok]
+                if seq and fs == [0]:
+                    held = ys[0]
+                    continue
+                ye = (held if seq else ys[0]).astype(np.complex64)
+                yo = ys[-1].astype(np.complex64)
+                zr = ye.real * yo.real + ye.imag * yo.imag
+                zj = ye.imag * yo.real - ye.real * yo.imag
+                a = atan2_poly(torch.from_numpy(zj), torch.from_numpy(zr),
+                               _ATAN_COEFFS if precise else _ATAN_COEFFS_FAST,
+                               newton_recip=not precise).numpy()
+                a = np.where(np.isnan(a), f32(0), a)
+                pair = u * G + j
+                ok = pair < pairs
+                at = (pair[ok][:, None], r[ok][:, None] + k3s)
+                assert np.all(np.isnan(d[at]))       # each output once
+                d[at] = a[ok]
+    return d, z_all, y_all
+
+
+@pytest.mark.parametrize("C", sorted(WIDE_PLANS))
+@pytest.mark.parametrize("pairs, grid", [(11, 3), (5, 1)])
+def test_wide_walk_matches_fft_and_plain_version(C, pairs, grid):
+    """The compiled-in plans' walk (_wide_walk) on two streamed blocks of
+    random bytes, `pairs` pairs a block over `grid` CTAs (runs of one to
+    several units; where G = 2 a block's last unit is short; the first
+    units' rows before sample 0 come from a random history): the branch
+    outputs bit-equal to the plain version's, the FFT within 1e-12 of
+    C·ifft of them, and the output within 1e-5 rad (> 100 dB) of
+    fused_pfb_demod_ref."""
+    rng = np.random.default_rng(C + pairs)
+    pfb = PolyphaseChannelizer(C)
+    assert pfb.P == WIDE_TAPS
+    h = pfb._h_np.astype(np.float32)
+    hist = rng.standard_normal((2, pfb.hist_len)).astype(np.float32)
+    for blk in range(2):
+        raw = rng.integers(0, 256, 4 * C * pairs, np.uint8)
+        d, z, y = _wide_walk(raw, hist, h, C, grid)
+        assert not np.isnan(d).any() and not np.isnan(y).any()
+        t_raw, t_hist = torch.from_numpy(raw), torch.from_numpy(hist)
+        zp, _ = pfb.branch_filter(torch.stack(split_iq(t_raw)), t_hist)
+        zp = zp.numpy()
+        np.testing.assert_array_equal(z.real, zp[0])
+        np.testing.assert_array_equal(z.imag, zp[1])
+        ref = C * np.fft.ifft(z.astype(np.complex128), axis=-1)
+        assert np.max(np.abs(y - ref)) <= 1e-12 * np.max(np.abs(ref))
+        want, new_hist = fused_pfb_demod_ref(t_raw, t_hist, pfb._h_np, C)
+        want = want.numpy().astype(np.float64)
+        err = np.remainder(d - want + np.pi, 2 * np.pi) - np.pi
+        snr = 10 * np.log10(np.mean(want ** 2)
+                            / max(np.mean(err ** 2), 1e-300))
+        assert np.abs(err).max() < 1e-5 and snr > 100.0, (C, blk, snr)
+        hist = new_hist.numpy()
 
 
 def _byte_perm(x, y, sel):
@@ -579,7 +823,7 @@ def test_span_plan_with_head_writes_every_word_once(vecs, H):
             assert sorted(lw.ravel()) == list(range(128 * vecs))
 
 
-@pytest.mark.parametrize("name", ["span", "span K3", "pfb", "q1",
+@pytest.mark.parametrize("name", ["span", "span K3", "pfb", "wide", "q1",
                                   "head fused_nbfm", "head fused_nbfm_q1"])
 def test_section_variants_find_their_markers(name):
     """``ops/cuda/sections.py`` cuts its variants out of the kernels'
@@ -593,7 +837,22 @@ def test_section_variants_find_their_markers(name):
     variants = {"span": lambda: sections.span_variants(False),
                 "span K3": lambda: sections.span_variants(True),
                 "pfb": sections.pfb_variants,
+                "wide": sections.wide_variants,
                 "q1": sections.q1_variants}[name]()
     texts = [v if isinstance(v, str) else "".join(v.values())
              for v in variants.values()]
     assert len(set(texts)) == len(texts) > 1
+    if name == "wide":
+        # cumulative cuts: each adds its section's call back
+        for kern, calls in (
+                ("pfb_big_kernel", ("  // branch filter: the odd frame",
+                                    "big_stage1<2>(Z, U, tw, b);",
+                                    "big_stage2<2>(U, tw, b);",
+                                    "big_stage3<2>(U, tw, row, b);")),
+                ("pfb_wide_kernel", ("wide_filter<W, false>(ring,",
+                                     "wide_stage1<W>(U, Zo, tw, false);",
+                                     "wide_stage2<W>(U, tw);",
+                                     "wide_stage3<W>(U, d + u"))):
+            cuts = [variants[f"{kern}: {c}"] for c in sections.WIDE_CUTS]
+            for k, call in enumerate(calls):
+                assert [call in t for t in cuts] == [i > k for i in range(5)]
