@@ -41,9 +41,10 @@ Phases, each fatal on failure (exit code != 0, no result line):
      2048 and 4096 on the compiled-in plans), on two streamed
      0.25 s blocks of an on-grid FM bank capture and of noise (C = 4 also
      on one 10-block bank4 chunk), and on its four-step route at C = 4800,
-     8192 and 8198 (30, 51.2 and 51.24 Msps; 8198 = 2·4099, pass 2 a
-     direct sum) on two streamed 0.05 s blocks: its launches a call (two
-     above 4096), angle-wrapped error < 0.01 rad,
+     8192 and 8198 (30, 51.2 and 51.24 Msps; 4800 and 8192 one launch of
+     the cluster kernel, 8198 = 2·4099 the two-pass route, pass 2 a direct
+     sum) on two streamed 0.05 s blocks: its launches a call (two on the
+     two-pass route), angle-wrapped error < 0.01 rad,
      > 80 dB, the carried history bit-equal;
 4. the main paths through their entry point, each in its own process, so
    its launch counts start at 0 (PHASES line), each with its full chunks
@@ -77,8 +78,8 @@ Phases, each fatal on failure (exit code != 0, no result line):
      blocks against the --device cpu pipeline at those bars, its carrier
      tones within 15 Hz; and bank8192, K6's four-step route: 16 channels
      of the 8192 of 51.2 Msps at 6.25 kHz on a 160 MiB capture (6 blocks
-     of 0.25 s, carriers on 4), captured: 2 launches a block (its two
-     kernels over the block's 781 frame pairs), the first 2 blocks
+     of 0.25 s, carriers on 4), captured: 1 launch a block (the cluster
+     kernel over the block's 781 frame pairs), the first 2 blocks
      against the --device cpu pipeline at those bars, the carrier tones
      within 15 Hz (phase 4f runs it captured and eager, each traced);
 4c. the port's other NBFM options through the same CLI on the same 256 MiB
@@ -167,7 +168,7 @@ Phases, each fatal on failure (exit code != 0, no result line):
    bank8192 also eagerly under it; the outputs equal byte for byte (-q
    1: > 110 dB, K4's look-back order depends on timing), the launch
    counts equal and exact (64 an NBFM run, and 64 of its patch kernel
-   after K3, 43 bank64, 18 bank4, 12 bank8192, 0 elsewhere), and each
+   after K3, 43 bank64, 18 bank4, 6 bank8192, 0 elsewhere), and each
    traced run's
    kernel events of each kernel equal to its counts (traced again, at
    most 3 times, while they fall short: the profiler can lose records);
@@ -189,9 +190,11 @@ Phases, each fatal on failure (exit code != 0, no result line):
    plan, and above 256 channels on one 0.25 s block of 6.25 kHz channels:
    the compiled-in plans at C = 384, 512, 1024, 2048 and 4096,
    pfb_big_kernel at 320, 400, 480, 1600 and 3200, the four-step route at
-   4800, 6144, 8192, 8198 and 16384 (a ``PFB_WIDE {json}`` line: each C's
-   kernel or kernels, its registers, local memory (stack and spills),
-   shared memory and CTAs an SM, and ``torch.fft.fft``'s time on the
+   4800, 6144, 8192, 8198 and 16384 (the cluster kernel but at 8198; a
+   ``PFB_WIDE {json}`` line: each C's kernel or kernels, its registers,
+   local memory (stack and spills), shared memory and CTAs an SM, a
+   cluster plan's CTAs a cluster and the clusters the card holds, and
+   ``torch.fft.fft``'s time on the
    block's frames in complex128, the FFT part alone as a yardstick); the
    bank's audio FIR; K1 and K4 with their head rows (P1, P2)
    and the patch kernels P3, P4 at 16, 256 and 2 blocks beside their
@@ -271,7 +274,8 @@ from demodulator_tpu_torch.ops.cuda.fused_nbfm import (
     fused_nbfm_cplx_ref, fused_nbfm_q1, fused_nbfm_q1_ref, fused_nbfm_q1_seq,
     fused_nbfm_q1_seq_ref, fused_nbfm_ref)
 from demodulator_tpu_torch.ops.cuda.fused_pfb import (
-    MAX_CTA_CHANNELS, WIDE_PLANS, WIDE_TAPS, fft_plan, four_step_plan,
+    CLUSTER_PLANS, MAX_CTA_CHANNELS, WIDE_PLANS, WIDE_TAPS, fft_plan,
+    four_step_plan, on_cluster,
     four_step_tiles, fused_pfb_demod, fused_pfb_demod_ref, group_pairs,
     launches_per_call,
     kernel_attrs)
@@ -312,6 +316,10 @@ SOURCES = {"fused_nbfm": (CSRC + "fused_nbfm.cu", PALLAS + "214"),
            "fused_nbfm_q1_seq": (CSRC + "fused_nbfm_q1.cu", PALLAS + "739"),
            "fused_pfb": (CSRC + "fused_pfb.cu",
                          "demodulator_tpu/ops/pallas/fused_pfb.py:196"),
+           # K6 on a cluster plan (bank8192's C = 8192)
+           "fused_pfb[bank8192]": (CSRC + "fused_pfb_cluster.cu",
+                                   "demodulator_tpu/ops/pallas/fused_pfb.py"
+                                   ":196"),
            # no TPU kernel: the JAX XLA code each patch replaces (K1 and
            # K4 compute P1's and P2's rows in their launch)
            "fused_nbfm+head": (CSRC + "fused_nbfm.cu", JMODEL + "159-168"),
@@ -929,6 +937,12 @@ def bank_offsets(nch: int, cr: float = CR, listed: int | None = None) -> list:
 
 def pfb_plan(C: int) -> str:
     """K6's FFT plan of C channels, as printed."""
+    if on_cluster(C):
+        N1, N2, K, T, sa, sb, held = CLUSTER_PLANS[C]
+        return (f"four steps {N1} x {N2} on clusters of {K} CTAs of {T} "
+                f"threads, stages {' x '.join(map(str, sa))} / "
+                f"{' x '.join(map(str, sb))}, taps "
+                f"{'in registers' if held else 'read'}, one launch")
     if C > MAX_CTA_CHANNELS:
         N1, N2 = four_step_plan(C)
         T1, T2 = four_step_tiles(C)
@@ -1337,8 +1351,8 @@ def phase_bank_narrow(work: Path, dev) -> dict:
 
 def phase_bank_four_step(work: Path, dev) -> dict:
     """Phase 4b, K6's four-step route through the CLI: bank8192, 16
-    channels of the 8192 of a 51.2 Msps capture at 6.25 kHz, captured: two
-    kernel launches a group of frame pairs a block, the first STEP_CHECKED
+    channels of the 8192 of a 51.2 Msps capture at 6.25 kHz, captured: one
+    launch of the cluster kernel a block, the first STEP_CHECKED
     blocks held to the --device cpu pipeline.  The capture stays for phase
     4f, which runs it captured and eager, each traced (kernel events equal
     to the counted launches, the two byte-equal)."""
@@ -1594,7 +1608,8 @@ def phase_resume_bank(work: Path, smi: str) -> None:
 KERNEL_SYMBOLS = {"fused_nbfm": "fused_nbfm_kernel",
                   "fused_nbfm_cplx": "fused_nbfm_cplx_kernel",
                   "fused_nbfm_q1": "q1_kernel",
-                  "fused_pfb": "pfb_(?:big_|wide_|pass1_|pass2_)?kernel",
+                  "fused_pfb": "pfb_(?:big_|wide_|pass1_|pass2_|cluster_)?"
+                               "kernel",
                   **{p: f"{p}_kernel" for p in PATCHES}}
 
 
@@ -2407,8 +2422,8 @@ GRAPH_KERNELS = {"q0": "fused_nbfm", "fast": "fused_nbfm",
                  "-q 2 -L": "fused_nbfm_cplx", "-q 1": "fused_nbfm_q1",
                  "bank64": "fused_pfb_demod", "bank4": "fused_pfb_demod",
                  "bank8192": "fused_pfb_demod"}
-# modes whose eager run is traced too (K6's four-step route: two kernels a
-# launch count)
+# modes whose eager run is traced too (K6's four-step route: its kernel
+# events held to its launches eagerly as in the graph)
 GRAPH_TRACE_EAGER = ("bank8192",)
 # mode -> the patch kernel after K3 (K1 and K4 carry their head rows)
 GRAPH_PATCHES = {"-L": "patch_cplx1", "-q 2": "patch_cplx1",
@@ -3088,7 +3103,8 @@ def phase_timings(dev, smi: str) -> dict:
         h_dev = torch.from_numpy(h.astype(np.float32)).to(dev)
         d, _ = fused_pfb_demod(raw, hist, h, C, h_dev=h_dev)
         nbytes = raw.numel() + 4 * d.numel() + 2 * 4 * hist.numel()
-        kern = ("pfb_pass" if C > MAX_CTA_CHANNELS
+        kern = ("pfb_cluster_kernel" if on_cluster(C, pfb.P)
+                else "pfb_pass" if C > MAX_CTA_CHANNELS
                 else "pfb_wide_kernel" if C in WIDE_PLANS
                 and pfb.P == WIDE_TAPS else "pfb_big_kernel")
         # the FFT part alone, as a yardstick: torch.fft.fft of the block's
@@ -3106,7 +3122,11 @@ def phase_timings(dev, smi: str) -> dict:
                               0, 0),
         }, nbytes / 1e9, f"C={C} at {fs / 1e6:g} Msps (FFT "
            f"{pfb_plan(C)}; 0.25 s, {n} samples)")
-        if C > MAX_CTA_CHANNELS:
+        if on_cluster(C, pfb.P):
+            wide[C] = {"kernel": kern, "plan": list(CLUSTER_PLANS[C]),
+                       "launches_per_call": launches_per_call(C, n),
+                       **kernel_attrs(C, pfb.P)}
+        elif C > MAX_CTA_CHANNELS:
             wide[C] = {"kernel": "pfb_pass1_kernel + pfb_pass2_kernel",
                        "plan": [*four_step_plan(C), *four_step_tiles(C)],
                        "launches_per_call": launches_per_call(C, n),
@@ -3395,8 +3415,9 @@ def main() -> int:
                  else "launches")
         head = kernel.endswith("+head")     # P1, P2: in K1's, K4's launch
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCES[kernel][0],
-            "replaces": SOURCES[kernel][1],
+            "name": name, "route": "cuda",
+            "source": SOURCES.get(name, SOURCES[kernel])[0],
+            "replaces": SOURCES.get(name, SOURCES[kernel])[1],
             "tpu_kernel": not (kernel.startswith("patch_") or head),
             # K5 runs on no path, in either package: held in phase 3
             "launches": 0 if run is None else main_path[run][count],

@@ -20,7 +20,7 @@
 // every C up to kMaxStaged; above, up to kMaxCtaChannels, the three-factor
 // route further down, pfb_wide_kernel and pfb_big_kernel, and above that
 // the four-step route at the end, pfb_pass1_kernel and pfb_pass2_kernel,
-// for any C).  The plan's
+// for any C that fused_pfb_cluster.cu has no cluster plan for).  The plan's
 // sizes (C, its factors, the strides, F, the frame pairs of a warp batch)
 // are compile-time constants for every power of two C from 2 to 256 with
 // the 12-tap prototype (Fixed), so divisions and addresses fold into
@@ -96,6 +96,7 @@
 #include <initializer_list>
 
 #include "nbfm_device.cuh"
+#include "pfb_device.cuh"
 
 namespace {
 
@@ -112,10 +113,6 @@ constexpr unsigned kFull = 0xffffffffu;
 // taps per branch of the channelizer's prototype (ops/channelizer.py
 // design_pfb_prototype): the branch filter's unrolled case
 constexpr int kTaps = 12;
-
-__host__ __device__ constexpr bool is_radix(int n) {
-  return n == 2 || n == 4 || n == 8 || n == 16;
-}
 
 // The largest radix factor of the plan (1: both direct): the kernel's
 // instantiation, which holds only the butterfly networks up to it.
@@ -208,39 +205,6 @@ size_t smem_bytes(const Plan& p) {
   const size_t x = sizeof(float2) * (static_cast<size_t>(p.P) * p.C + p.F * p.C + 1);
   const size_t u = is_small(p.C) ? 0 : sizeof(double2) * kWarps * 2 * p.G * p.C1 * p.RS;
   return tw + z + (x > u ? x : u);
-}
-
-__device__ __forceinline__ double2 cmul(double2 a, double2 w) {
-  return make_double2(__fma_rn(a.x, w.x, -__dmul_rn(a.y, w.y)),
-                      __fma_rn(a.x, w.y, __dmul_rn(a.y, w.x)));
-}
-
-// acc + a * w
-__device__ __forceinline__ double2 cmac(double2 acc, double2 a, double2 w) {
-  acc.x = __fma_rn(a.x, w.x, acc.x);
-  acc.x = __fma_rn(-a.y, w.y, acc.x);
-  acc.y = __fma_rn(a.x, w.y, acc.y);
-  acc.y = __fma_rn(a.y, w.x, acc.y);
-  return acc;
-}
-
-template <int N>
-struct Log2 {
-  static constexpr int value = 1 + Log2<N / 2>::value;
-};
-template <>
-struct Log2<1> {
-  static constexpr int value = 0;
-};
-
-// i with its log2(N) bits reversed (loops of constant trip count, so the
-// unrolled callers index registers with constants)
-template <int N>
-__device__ __forceinline__ int bitrev(int i) {
-  int r = 0;
-#pragma unroll
-  for (int b = 0; b < Log2<N>::value; ++b) r = (r << 1) | ((i >> b) & 1);
-  return r;
 }
 
 // The butterflies of span LEN, then those of the larger spans.  The factor
@@ -865,15 +829,6 @@ size_t big_smem_bytes(const Big& b) {
   return sizeof(double2) * 2 * b.s.FS + sizeof(float2) * 2 * b.s.N;
 }
 
-// Conditioned sample s of the launch: from the history where s < 0
-__device__ __forceinline__ float2 big_sample(const uint16_t* __restrict__ in,
-                                             const float* __restrict__ hist, int PC,
-                                             long long s) {
-  if (s < 0) return make_float2(hist[PC + s], hist[2 * PC + s]);
-  const float4 c = condition_word<false>(__ldg(in + s));  // bytes 2, 3 unused
-  return make_float2(c.x, c.y);
-}
-
 // The branch filter of channel c for both frames of a pair, the odd frame
 // starting at sample top: the odd frame at tap p reads x[top - c - pC], the
 // even frame at tap p what the odd one read at tap p + 1, so P + 1 loads
@@ -1258,83 +1213,6 @@ int launch_big(const uint16_t* in, const float* hist, const float* h, const doub
 // 4096 5.8, 81.1, 93.5, 104.2 and 114.1 us (437.2).  PERF.md has the
 // numbers.
 
-// e^{+j 2 pi m / 16} and e^{+j 2 pi m / 3}: numpy's cos and sin of 2 pi m / n,
-// the table's entries m*C/16 and m*C/3 (tests/test_torch_kernel_plans.py)
-__constant__ double2 kW16[16] = {
-    {0x1.0000000000000p+0, 0x0.0p+0},
-    {0x1.d906bcf328d46p-1, 0x1.87de2a6aea963p-2},
-    {0x1.6a09e667f3bcdp-1, 0x1.6a09e667f3bccp-1},
-    {0x1.87de2a6aea964p-2, 0x1.d906bcf328d46p-1},
-    {0x1.1a62633145c07p-54, 0x1.0000000000000p+0},
-    {-0x1.87de2a6aea962p-2, 0x1.d906bcf328d46p-1},
-    {-0x1.6a09e667f3bccp-1, 0x1.6a09e667f3bcdp-1},
-    {-0x1.d906bcf328d46p-1, 0x1.87de2a6aea965p-2},
-    {-0x1.0000000000000p+0, 0x1.1a62633145c07p-53},
-    {-0x1.d906bcf328d47p-1, -0x1.87de2a6aea961p-2},
-    {-0x1.6a09e667f3bcep-1, -0x1.6a09e667f3bccp-1},
-    {-0x1.87de2a6aea96dp-2, -0x1.d906bcf328d44p-1},
-    {-0x1.a79394c9e8a0ap-53, -0x1.0000000000000p+0},
-    {0x1.87de2a6aea967p-2, -0x1.d906bcf328d45p-1},
-    {0x1.6a09e667f3bcbp-1, -0x1.6a09e667f3bcep-1},
-    {0x1.d906bcf328d44p-1, -0x1.87de2a6aea96ep-2}};
-__constant__ double2 kW3[3] = {{0x1.0000000000000p+0, 0x0.0p+0},
-                               {-0x1.ffffffffffffcp-2, 0x1.bb67ae8584cabp-1},
-                               {-0x1.0000000000004p-1, -0x1.bb67ae8584ca8p-1}};
-
-// w_N^m, N a radix size or 3
-template <int N>
-__device__ __forceinline__ double2 wconst(int m) {
-  static_assert(N == 3 || (is_radix(N)), "a compiled-in stage is 2, 3, 4, 8 or 16 points");
-  if constexpr (N == 3) {
-    return kW3[m];
-  } else {
-    return kW16[m * (16 / N)];
-  }
-}
-
-// fft_pass with the constant factors
-template <int N, int LEN>
-__device__ __forceinline__ void wide_pass(double2 (&v)[N]) {
-#pragma unroll
-  for (int j = 0; j < LEN / 2; ++j) {
-    const double2 w = wconst<LEN>(j);
-#pragma unroll
-    for (int i = 0; i < N; i += LEN) {
-      const double2 a = v[i + j];
-      const double2 c = v[i + j + LEN / 2];
-      const double2 b = j == 0 ? c : (4 * j == LEN ? make_double2(-c.y, c.x) : cmul(c, w));
-      v[i + j] = make_double2(__dadd_rn(a.x, b.x), __dadd_rn(a.y, b.y));
-      v[i + j + LEN / 2] = make_double2(__dsub_rn(a.x, b.x), __dsub_rn(a.y, b.y));
-    }
-  }
-  if constexpr (LEN < N) wide_pass<N, 2 * LEN>(v);
-}
-
-// The N-point DFT of v in place, natural order in and out: v[k] = sum_c v[c]
-// w_N^(k c).  A radix size is the butterfly network, 3 the direct sum.
-template <int N>
-__device__ __forceinline__ void wide_fft(double2 (&v)[N]) {
-  if constexpr (is_radix(N)) {
-    double2 a[N];
-#pragma unroll
-    for (int i = 0; i < N; ++i) a[i] = v[bitrev<N>(i)];
-    wide_pass<N, 2>(a);
-#pragma unroll
-    for (int i = 0; i < N; ++i) v[i] = a[i];
-  } else {
-    double2 y[N];
-#pragma unroll
-    for (int k = 0; k < N; ++k) {
-      double2 acc = make_double2(0.0, 0.0);
-#pragma unroll
-      for (int c = 0; c < N; ++c) acc = cmac(acc, v[c], wconst<N>((k * c) % N));
-      y[k] = acc;
-    }
-#pragma unroll
-    for (int k = 0; k < N; ++k) v[k] = y[k];
-  }
-}
-
 // A compiled-in plan: C = kC1 * kC2 * kC3 with the kTaps-tap prototype, kG
 // frame pairs a unit, kSeq (kG = 1) one frame in U at a time, kT threads,
 // registers held to kCtas CTAs an SM.
@@ -1360,10 +1238,6 @@ struct Wide {
   static_assert(!kSeq || (kG == 1 && ST == kT), "one stage-3 column a thread");
   static_assert(kSmem <= kMaxSmem, "a CTA's shared memory");
 };
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
 
 // One thread: bytes of transactions expected in the mbarrier's phase, and a
 // bulk asynchronous copy of [src, src + bytes) into dst completing on it.
@@ -1418,11 +1292,6 @@ __device__ __forceinline__ void wide_fill(const uint16_t* __restrict__ in, uint1
       ring[static_cast<int>((ra + i / C) % RING) * C + i % C] = in[ra * C + i];
     }
   }
-}
-
-__device__ __forceinline__ float2 wide_cond(uint32_t w) {
-  const float4 c = condition_word<false>(w);  // bytes 2, 3 unused
-  return make_float2(c.x, c.y);
 }
 
 // The branch filter of the unit's NF frames m0 .. m0 + NF - 1, into U in
@@ -1771,11 +1640,13 @@ int wide_plan(const uint16_t* in, const float* hist, const float* h, const doubl
 
 // ---------------------------------------------------------------------------
 // The four-step route: C > kMaxCtaChannels, where one frame pair's float64
-// spectra no longer fit a CTA's shared memory.  Bailey's four-step FFT in
-// two kernels through a float64 scratch buffer in global memory: with C =
-// N1*N2 (the wrapper's four_step_plan: both factors as near sqrt(C) as the
-// divisors allow, a factor above kMaxCtaChannels as N1), c = n1 + N1*n2 and
-// k = k2 + N2*k1,
+// spectra no longer fit a CTA's shared memory, for every C (and P) with no
+// cluster plan (fused_pfb_cluster.cu, one launch on thread block clusters,
+// takes the 6.25 kHz grids 4800, 6144, 8192 and 16384 with kTaps taps).
+// Bailey's four-step FFT in two kernels through a float64 scratch buffer
+// in global memory: with C = N1*N2 (the wrapper's four_step_plan: both
+// factors as near sqrt(C) as the divisors allow, a factor above
+// kMaxCtaChannels as N1), c = n1 + N1*n2 and k = k2 + N2*k1,
 //
 //   Y[n1, k2]     = w_C^(n1 k2) * sum_n2 z[n1 + N1 n2] w_N2^(n2 k2)   (pfb_pass1_kernel)
 //   y[k2 + N2 k1] = sum_n1 Y[n1, k2] w_N1^(n1 k1)                     (pfb_pass2_kernel)
@@ -1813,7 +1684,7 @@ int wide_plan(const uint16_t* in, const float* hist, const float* h, const doubl
 // one 0.25 s block at C = 8192 took 487.5 us in pass 1 and 132.6 in pass 2
 // as one group; groups whose Y stays in L2 were slower (689 us at 16 MiB),
 // their launches too small to fill the card.  PERF.md has the
-// numbers; ROADMAP.md the cluster design that keeps Y on chip.
+// numbers.
 
 // A launch of one pass over a group of frame pairs.  T: columns a tile (n1
 // in pass 1, k2 in pass 2; 0 in pass 2: the direct sum), `tiles` a pair;

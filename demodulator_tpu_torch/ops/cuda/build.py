@@ -25,8 +25,9 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("fused_nbfm.cu", "fused_nbfm_cplx.cu", "fused_nbfm_q1.cu",
-           "fused_pfb.cu", "nbfm_patch.cu")
-HEADERS = ("nbfm_device.cuh", "nbfm_span.cuh", "nbfm_head.cuh")
+           "fused_pfb.cu", "fused_pfb_cluster.cu", "nbfm_patch.cu")
+HEADERS = ("nbfm_device.cuh", "nbfm_span.cuh", "nbfm_head.cuh",
+           "pfb_device.cuh")
 # sm_90a (Hopper).  No --use_fast_math and no -prec-div=false: the precise
 # discriminator needs IEEE division and must keep denormals.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -74,6 +75,13 @@ _SIGNATURES = {
                               ctypes.POINTER(_I), _I, _I64, _I, _I, _P),
     # C, plan int[7], P, out int[8] (both kernels' attributes)
     "fused_pfb_step_attrs": (_I, ctypes.POINTER(_I), _I, ctypes.POINTER(_I)),
+    # a compiled-in cluster plan (C > 4096, fused_pfb_cluster.cu): in, hist,
+    # h, table, d, new_hist, samples, C, P, precise, stream
+    "fused_pfb_cluster_launch": (_P, _P, _P, _P, _P, _P, _I64, _I, _I, _I,
+                                 _P),
+    # C, out int[6] (registers, local bytes, shared bytes, CTAs an SM, CTAs
+    # a cluster, clusters the card holds)
+    "fused_pfb_cluster_attrs": (_I, ctypes.POINTER(_I)),
     # the patches after K3 (nbfm_patch.cu); a struct argument is its
     # address.  raw, audio, blocks, words, stage, audio FIR, n_pairs, w1_words,
     # wt_words, precise, normalize, stream

@@ -14,13 +14,16 @@ whole in shared memory, and in three, C = C1·C2·C3, up to
 prototype on compiled-in plans, a CTA walking units of consecutive frame
 pairs over input rows staged by bulk copies, any other C a frame pair a
 CTA.  Above, where a CTA cannot hold a frame pair's spectra, a four-step
-FFT C = N1·N2 (:func:`four_step_plan`) in two kernels through a float64
-scratch buffer, all of a call's frame pairs in one pass-1 and one pass-2
-launch unless the scratch would pass :data:`SCRATCH_BYTES`
-(:func:`group_pairs`).  Every factor is read from one float64 table
-(:func:`fft_table`).
+FFT C = N1·N2 (:func:`four_step_plan`): for the grids of
+:data:`CLUSTER_PLANS` with the 12-tap prototype one launch of
+``pfb_cluster_kernel`` (``csrc/fused_pfb_cluster.cu``), a thread block
+cluster holding a frame pair's spectra in its CTAs' shared memory; any
+other C in two kernels through a float64 scratch buffer, all of a call's
+frame pairs in one pass-1 and one pass-2 launch unless the scratch would
+pass :data:`SCRATCH_BYTES` (:func:`group_pairs`).  Every factor is read
+from one float64 table (:func:`fft_table`).
 
-Given CUDA tensors the wrapper launches the kernel (the four-step route:
+Given CUDA tensors the wrapper launches the kernel (the two-pass route:
 its two kernels a group of pairs), adds one to
 ``fused_pfb_demod.launches`` a kernel launched (:func:`launches_per_call`)
 and returns; a P beyond the kernel's limit (:func:`kernel_refusal`), a
@@ -42,13 +45,13 @@ from ..conditioning import split_iq
 from ..demod import _ATAN_COEFFS, _ATAN_COEFFS_FAST, atan2_poly
 from .fused_nbfm import _raise_on
 
-__all__ = ["MAX_CTA_CHANNELS", "MAX_PHASES", "MAX_FACTOR", "MAX_STAGED",
-           "SCRATCH_BYTES", "SMEM_LIMIT", "STEP_SMEM", "WIDE_PLANS",
-           "WIDE_TAPS", "fft_plan", "fft_table", "four_step_plan",
-           "four_step_smem", "four_step_tiles", "fused_pfb_demod",
-           "fused_pfb_demod_ref", "group_pairs", "kernel_attrs",
-           "kernel_refusal", "launches_per_call", "pair_smem_bytes",
-           "sub_plan"]
+__all__ = ["CLUSTER_PLANS", "MAX_CTA_CHANNELS", "MAX_PHASES", "MAX_FACTOR",
+           "MAX_STAGED", "SCRATCH_BYTES", "SMEM_LIMIT", "STEP_SMEM",
+           "WIDE_PLANS", "WIDE_TAPS", "fft_plan", "fft_table",
+           "four_step_plan", "four_step_smem", "four_step_tiles",
+           "fused_pfb_demod", "fused_pfb_demod_ref", "group_pairs",
+           "kernel_attrs", "kernel_refusal", "launches_per_call",
+           "on_cluster", "pair_smem_bytes", "sub_plan"]
 
 # the largest C whose frame pair's spectra a CTA holds (csrc/fused_pfb.cu
 # kMaxCtaChannels); above, the four-step route
@@ -72,6 +75,16 @@ WIDE_TAPS = 12       # csrc/fused_pfb.cu kTaps
 # whose scratch stays in the 50 MB L2: PERF.md, the four-step route)
 STEP_SMEM = 113 << 10
 SCRATCH_BYTES = 512 << 20
+# The four-step plans compiled in on thread block clusters
+# (csrc/fused_pfb_cluster.cu PFB_CLUSTER, with WIDE_TAPS taps a branch): C
+# -> (N1, N2, CTAs a cluster, threads a CTA, step A's N2-point stages,
+# step B's N1-point stages, each thread's taps held in registers).  The
+# 6.25 kHz grids of 30, 38.4, 51.2 and 102.4 Msps; one launch a call, no
+# scratch.
+CLUSTER_PLANS = {4800: (64, 75, 4, 512, (3, 5, 5), (8, 8), True),
+                 6144: (64, 96, 4, 512, (8, 4, 3), (8, 8), False),
+                 8192: (64, 128, 4, 512, (16, 8), (8, 8), False),
+                 16384: (128, 128, 8, 512, (8, 4, 4), (8, 4, 4), False)}
 
 
 def _check(raw: torch.Tensor, hist: torch.Tensor, h, C: int):
@@ -295,10 +308,17 @@ def group_pairs(C: int) -> int:
     return max(1, SCRATCH_BYTES // (32 * C))
 
 
-def launches_per_call(C: int, n: int) -> int:
-    """Kernel launches of one call on n complex samples of C channels: 1,
-    or, on the four-step route, 2 a group of :func:`group_pairs`."""
-    if C <= MAX_CTA_CHANNELS:
+def on_cluster(C: int, P: int = WIDE_TAPS) -> bool:
+    """Whether C channels of P taps a branch run a compiled-in cluster plan
+    (:data:`CLUSTER_PLANS`)."""
+    return C in CLUSTER_PLANS and P == WIDE_TAPS
+
+
+def launches_per_call(C: int, n: int, P: int = WIDE_TAPS) -> int:
+    """Kernel launches of one call on n complex samples of C channels of P
+    taps a branch: 1, or, on the two-pass four-step route, 2 a group of
+    :func:`group_pairs`."""
+    if C <= MAX_CTA_CHANNELS or on_cluster(C, P):
         return 1
     return 2 * -(-(n // (2 * C)) // group_pairs(C))
 
@@ -319,12 +339,19 @@ def kernel_attrs(C: int, P: int = WIDE_TAPS) -> dict:
     channels of P taps runs (``pfb_wide_kernel`` for a compiled-in plan,
     else ``pfb_big_kernel``): registers a thread, local memory a thread
     (stack and spills, bytes), dynamic shared memory (bytes), CTAs an SM;
-    on the four-step route (C > :data:`MAX_CTA_CHANNELS`) those of its two
-    kernels, {"pfb_pass1_kernel": {...}, "pfb_pass2_kernel": {...}}.
-    Builds the library; needs a card."""
+    for a cluster plan (:func:`on_cluster`) those of ``pfb_cluster_kernel``
+    with its CTAs a cluster (``cluster_size``) and the clusters the card
+    holds at once (``active_clusters``); on the two-pass four-step route
+    those of its two kernels, {"pfb_pass1_kernel": {...},
+    "pfb_pass2_kernel": {...}}.  Builds the library; needs a card."""
     if C <= MAX_STAGED:
         raise ValueError(f"C = {C} is on the two-factor route")
     keys = ("regs", "local_bytes", "smem_bytes", "ctas_per_sm")
+    if on_cluster(C, P):
+        out = (ctypes.c_int * 6)()
+        _raise_on(build.load().fused_pfb_cluster_attrs(C, out),
+                  "fused_pfb_cluster_attrs")
+        return dict(zip(keys + ("cluster_size", "active_clusters"), out))
     if C > MAX_CTA_CHANNELS:
         out = (ctypes.c_int * 8)()
         _raise_on(build.load().fused_pfb_step_attrs(
@@ -384,6 +411,14 @@ def fused_pfb_demod(raw: torch.Tensor, hist: torch.Tensor, h, C: int,
     lib = build.load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
+        if on_cluster(C, P):
+            rc = lib.fused_pfb_cluster_launch(
+                raw.data_ptr(), hist.data_ptr(), h_dev.data_ptr(),
+                table.data_ptr(), d.data_ptr(), new_hist.data_ptr(), n, C, P,
+                int(bool(precise)), stream)
+            _raise_on(rc, "fused_pfb (cluster)")
+            fused_pfb_demod.launches += 1
+            return d, new_hist
         if C > MAX_CTA_CHANNELS:
             _four_step(lib, raw, hist, h_dev, table, d, new_hist, n, C, P,
                        precise, stream)
@@ -400,7 +435,7 @@ def fused_pfb_demod(raw: torch.Tensor, hist: torch.Tensor, h, C: int,
 
 def _four_step(lib, raw, hist, h_dev, table, d, new_hist, n, C, P, precise,
                stream):
-    """The four-step route: pass 1 and pass 2 over each group of
+    """The two-pass four-step route: pass 1 and pass 2 over each group of
     :func:`group_pairs` frame pairs, into d and new_hist, through one
     float64 scratch buffer [group, 2, N2, N1] of complex values (allocated
     on the caller's stream: a captured step keeps its address)."""

@@ -32,13 +32,19 @@ registers, stack and spills as ``-Xptxas -v`` reports them; with
 tree's K6 at every C of ``WIDE_TIMED``, at the off-plan grids of
 ``WIDE_OFF_PLAN`` and at bank64's and bank4's C, timed in turns with this
 tree's as built (parent, this, this, parent), each held to the plain
-version and the two trees' outputs compared bit for bit.  ``step``: K6's four-step route (C >
-4096) at C = 4800, 6144, 8192, 8198 and 16384 on one 0.25 s block of 6.25
-kHz channels, the device µs a call of each of its two kernels with the
-frame pairs run in groups whose scratch is 4, 8, 16 or 32 MiB (in the 50
-MB L2) or at most 512 MiB (the package's ``SCRATCH_BYTES``: one group of
-every pair), each held to the plain version; one group also after a second
-of calls back to back.  K4 at 16 and 256 blocks of
+version and the two trees' outputs compared bit for bit.  ``step``: K6's
+four-step route (C > 4096) at C = 4800, 6144, 8192, 8198 and 16384 on one
+0.25 s block of 6.25 kHz channels through the package's wrapper (the
+cluster kernel, or at 8198 the two passes), the device µs a call of each
+kernel held to the plain version, also after a second of calls back to
+back; at 4800 and 8192 the two-pass route's pass 1 cut cumulatively (the
+launch and the history alone, + branch filter, + FFT, + the store of Y)
+and the cluster kernel cut cumulatively (d from X alone, + branch filter,
++ step A, + the exchange, + step B with the discriminator) with the
+diagnostic cuts and the alternatives of ``cluster_variants``, every
+variant's ``-Xptxas -v``; with ``--parent DIR`` also that tree's route
+and this one's in turns at every C, the outputs held to each other at
+the phase-3 bars and the histories bit-equal.  K4 at 16 and 256 blocks of
 256 KiB, with tiles of 1024, 2048 and 4096 step pairs, and at Q1_TILE
 without its block look-back.  The variants compute wrong outputs; only
 their times mean anything.  ``head``: K1 (precise and fast) and K4
@@ -593,79 +599,239 @@ def time_wide(libs: dict, dev, parent=None) -> dict:
     return out
 
 
-# K6's four-step route: the C timed, and the scratch a group of frame pairs
-# may hold (MiB; None: the package's SCRATCH_BYTES)
-STEP_C = (4800, 6144, 8192, 8198, 16384)
-STEP_SCRATCH_MIB = (4, 8, 16, 32, None)
+# K6's four-step route: the C timed; the C cut into sections (pass 1 of
+# the two-pass route and the cluster kernel); what replaces the cut parts'
+# output (a value of each part's result compared, so nothing before it is
+# dead, and the cluster variants' d written from X)
+STEP_C = (4097, 4800, 6144, 8192, 8198, 16384)
+STEP_CUT_C = (4800, 8192)
 STEP_SUSTAIN_S = 1.0    # back-to-back calls before the "sustained" window
+PASS1_CUTS = ("output only", "+ branch filter", "+ FFT",
+              "+ store of Y (whole pass 1)")
+CLUSTER_CUTS = ("output only", "+ branch filter", "+ step A", "+ exchange",
+                "+ step B with the discriminator (whole kernel)")
+_CL_OUT = """    for (int t = threadIdx.x; t < C / W::K; t += W::T) {
+      d[j * C + rank * (C / W::K) + t] = static_cast<float>(X[t].x);
+    }
+"""
+_CL_XCHG = """    double s = 0.0;
+#pragma unroll
+    for (int i = 0; i < R; ++i) s += v[i].x + v[i].y;
+    row[kb0 / NB * (W::C / W::K) + (f * NB + l) * D + dd] = static_cast<float>(s);
+  }
+}
+"""
+
+
+def pass1_variants() -> dict:
+    """{label: fused_pfb.cu text}: ``pfb_pass1_kernel`` cut cumulatively
+    (PASS1_CUTS): the launch and the new history alone, then the branch
+    filter, the N2-point FFTs (stage 3's outputs compared, not stored), the
+    twiddled store of Y (the whole pass).  Pass 2 runs as built on what Y
+    holds."""
+    args = "(src, hi, hp, tb, out, nh, n, C, C1, C2, P, s)"
+    src = _sub((build.CSRC / "fused_pfb.cu").read_text(),
+               f"  return precise ? launch_plan<true>{args}\n"
+               f"                 : launch_plan<false>{args};",
+               "  return static_cast<int>(cudaErrorInvalidValue);")
+    fft = _sub(src, "      Yp[e * C + k2 * N1 + n1] = n1 * k2 ? "
+               "cmul(y, __ldg(tw + n1 * k2)) : y;",
+               "      if (y.x == 1234.5) Yp[e * C + k2 * N1 + n1] = y;")
+    consumer = ("  if (Z[threadIdx.x].x == 1234.5f) Y[blockIdx.x] = "
+                "make_double2(0.0, 0.0);\n}")
+    bf = _cut(src, "  sub_stages12(\n      [&](int f, int c) {\n"
+              "        const float2 z = Z[f * ZS + c];",
+              "\n\n// CTA b: pair b / tiles of the group, its tile b % "
+              "tiles of k2", consumer)
+    out = _cut(bf, "  // branch filter of channel a + tt + N1*n2, tt fastest",
+               consumer)
+    return dict(zip(PASS1_CUTS, (out, bf, fft, src)))
+
+
+def cluster_variants() -> dict:
+    """{label: fused_pfb_cluster.cu text}: ``pfb_cluster_kernel`` cut
+    cumulatively (CLUSTER_CUTS): d written from X alone, then the branch
+    filter from the ring (and its asynchronous copies), step A, the
+    exchange (the cluster barrier and step B's reads through distributed
+    shared memory, the values summed into d), step B's stages with the
+    discriminator (the whole kernel); the filter's cut with its taps a
+    constant (what reading them costs) and without the next pair's rows
+    copied in (what the copies cost); the exchange's cut without its reads
+    (what the barrier costs); the whole kernel with each plan's taps the
+    other way (kRegTaps: held in registers where the plan reads them, read
+    where it holds them)."""
+    src = (build.CSRC / "fused_pfb_cluster.cu").read_text()
+    xchg = _cut(src, "    cl_dft<R>(v);\n    const double2 w = __ldg(tw + dd * N2);",
+                "\n// Rows [ra, rb) of the CTA's ring", _CL_XCHG)
+    step_b = ("    cluster_arrive();  // Y of every CTA written\n"
+              "    cluster_wait();\n"
+              "    step_b<W>(X, XB, tw, d + j * C, kb0, live, precise);\n")
+    a = _sub(src, step_b, _CL_OUT)
+    bf = _cut(a, "    // step A: the N2-point FFTs of this CTA's n1",
+              _CL_OUT)
+    out = _sub(_cut(bf, "    if (2 * j < P) {\n      cl_filter<W, true>(",
+                    _CL_OUT),
+               "  cl_fill<W>(in, ring, max(2 * ja - P, 0LL), 2 * ja + 1, a, "
+               "aligned);\n", "")
+    barriers = _sub(xchg, "      v[i] = ld_cluster(base + 16u * (n1 % NA), "
+                    "n1 / NA);", "      v[i] = make_double2(base + n1, 0.0);")
+    held = src
+    for C in STEP_CUT_C:
+        row = src[src.index(f"  PFB_CLUSTER({C}, "):]
+        row = row[:row.index("\n")]
+        plan = row[:row.index(">", row.rindex("Stages<")) + 1]
+        held = _sub(held, row, plan + (")" if row.endswith(", true)")
+                                       else ", true)"))
+    taps = _sub(bf, "        return __ldg(h + p * C + c);",
+                "        return 0.5f + p;")
+    copies = _sub(bf, "    if (j + 1 < jb) cl_fill<W>(in, ring, 2 * j + 1, "
+                  "2 * j + 3, a, aligned);\n", "")
+    return {**dict(zip(CLUSTER_CUTS, (out, bf, a, xchg, src))),
+            "+ branch filter, its taps a constant": taps,
+            "+ branch filter, no copies of the next rows": copies,
+            "+ step A and the cluster barrier, no reads": barriers,
+            "whole kernel, each plan's taps the other way": held}
 
 
 def _step_window(call, calls: int, C: int) -> dict:
-    """The device µs a call of each of the route's two kernels over
-    ``calls`` calls under torch.profiler (a window that lost its records
-    profiled again, up to three)."""
+    """The device µs a call of each K6 kernel a call launches (the two-pass
+    route's two, or the cluster kernel) over ``calls`` calls under
+    torch.profiler, and their sum: a kernel's mean per recorded launch
+    times its launches a call, rounded (the profiler can drop records; a
+    window that recorded none is profiled again, up to three)."""
     from torch.profiler import ProfilerActivity, profile
-    kernels = ("pfb_pass1_kernel", "pfb_pass2_kernel")
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 call()
             torch.cuda.synchronize()
-        row = {k: round(sum(e.device_time_total for e in prof.key_averages()
-                            if k in e.key) / calls, 2) for k in kernels}
-        if all(row.values()):
+        row = {}
+        for e in prof.key_averages():
+            for k in ("pfb_pass1_kernel", "pfb_pass2_kernel",
+                      "pfb_cluster_kernel"):
+                if k in e.key and e.count:
+                    row[k] = row.get(k, 0.0) + (
+                        e.device_time_total / e.count
+                        * max(1, round(e.count / calls)))
+        if row and all(row.values()):
+            row = {k: round(v, 2) for k, v in row.items()}
             row["sum"] = round(sum(row.values()), 2)
             return row
     raise RuntimeError(f"K6 four-step C={C}: no kernel events in three "
-                       f"windows: {row}")
+                       f"windows")
 
 
-def time_step(dev, calls: int = 10) -> dict:
+def _step_call(lib, C, n, raw, hist, h, d, nh, label):
+    """A call of ``lib``'s two-pass route (fused_pfb_step_launch, every pair
+    in groups of group_pairs(C), as the wrapper launches it) into d, nh."""
+    fn = lib.fused_pfb_step_launch
+    fn.argtypes = build._SIGNATURES["fused_pfb_step_launch"]
+    N1, N2 = fused_pfb.four_step_plan(C)
+    pairs = n // (2 * C)
+    g = min(fused_pfb.group_pairs(C), pairs)
+    y = torch.empty((g, 2, N2, N1, 2), dtype=torch.float64, device=raw.device)
+    plan = (ctypes.c_int * 7)(*fused_pfb.step_plan(C))
+    table = fused_pfb._table(C, raw.device)
+
+    def call():
+        for p0 in range(0, pairs, g):
+            rc = fn(raw.data_ptr(), hist.data_ptr(), h.data_ptr(),
+                    table.data_ptr(), y.data_ptr(), d.data_ptr(),
+                    nh.data_ptr(), n, C, plan, fused_pfb.WIDE_TAPS, p0,
+                    min(g, pairs - p0), 0,
+                    torch.cuda.current_stream().cuda_stream)
+            if rc:
+                raise RuntimeError(f"fused_pfb {label} C={C}: CUDA error "
+                                   f"{rc}")
+    return call
+
+
+def _cluster_call(lib, C, n, raw, hist, h, d, nh, label):
+    fn = lib.fused_pfb_cluster_launch
+    fn.argtypes = build._SIGNATURES["fused_pfb_cluster_launch"]
+    table = fused_pfb._table(C, raw.device)
+
+    def call():
+        rc = fn(raw.data_ptr(), hist.data_ptr(), h.data_ptr(),
+                table.data_ptr(), d.data_ptr(), nh.data_ptr(), n, C,
+                fused_pfb.WIDE_TAPS, 0,
+                torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"fused_pfb {label} C={C}: CUDA error {rc}")
+    return call
+
+
+def time_step(dev, pass1: dict, cluster: dict, parent=None,
+              calls: int = 10) -> dict:
     """K6's four-step route through the package's wrapper on one 0.25 s
-    block of 6.25 kHz channels at each C of STEP_C, its frame pairs in
-    groups whose scratch is at most each size of STEP_SCRATCH_MIB: the
-    device µs a call of each of its two kernels (torch.profiler, summed
-    over the call's launches, the mean of ``calls`` calls after one call),
-    the launches a call, and the output held to the plain version; one
-    group also after STEP_SUSTAIN_S of calls back to back (the card under
-    sustained load, as chip_smoke.py's phase 5 times it)."""
+    block of 6.25 kHz channels at each C of STEP_C: the device µs a call of
+    each kernel it launches (torch.profiler, the mean of ``calls`` calls
+    after one call), the launches a call, the output held to the plain
+    version; also after STEP_SUSTAIN_S of calls back to back (the card
+    under sustained load, as chip_smoke.py's phase 5 times it).  At
+    STEP_CUT_C the cumulative cuts of ``pass1`` (libraries of
+    pass1_variants, through their two-pass entry) and of ``cluster``
+    (cluster_variants).  With ``parent`` (a library of another tree's
+    fused_pfb.cu): that tree's route (its two passes, as its wrapper
+    launched them) and this one's in turns at every C, parent, this, this,
+    parent, the two outputs held to each other at the phase-3 bars and the
+    histories bit-equal."""
     out = {}
-    default = fused_pfb.SCRATCH_BYTES
     for C in STEP_C:
         pfb, n, raw, hist, h, d, nh = _wide_inputs(C, dev)
         h64 = pfb._h_np
         want = fused_pfb.fused_pfb_demod_ref(raw, hist, h64, C)
-        pairs = n // (2 * C)
 
         def call():
             return fused_pfb.fused_pfb_demod(raw, hist, h64, C)
-        for mib in STEP_SCRATCH_MIB:
-            fused_pfb.SCRATCH_BYTES = default if mib is None else mib << 20
-            try:
-                got = call()
-                torch.cuda.synchronize()
-                row = _step_window(call, calls, C)
-                row["launches"] = fused_pfb.launches_per_call(C, n)
-                row["holds the bars"] = _holds_bars(pfb, C, raw, hist, *got,
-                                                    want=want)
-                size = "one group" if mib is None else f"{mib} MiB"
-                key = (f"K6 four-step C={C} {size} "
-                       f"({min(fused_pfb.group_pairs(C), pairs)} pairs a "
-                       f"group)")
-                out[key] = row
-                print(f"{key}: {row}", file=sys.stderr, flush=True)
-                if mib is None:
-                    t_end = time.perf_counter() + STEP_SUSTAIN_S
-                    while time.perf_counter() < t_end:
-                        call()
-                        torch.cuda.synchronize()
-                    row = _step_window(call, calls, C)
-                    key = f"K6 four-step C={C} one group, sustained"
-                    out[key] = row
-                    print(f"{key}: {row}", file=sys.stderr, flush=True)
-            finally:
-                fused_pfb.SCRATCH_BYTES = default
-        del raw, d, want
+        got = call()
+        torch.cuda.synchronize()
+        row = _step_window(call, calls, C)
+        row["launches"] = fused_pfb.launches_per_call(C, n)
+        row["holds the bars"] = _holds_bars(pfb, C, raw, hist, *got,
+                                            want=want)
+        key = f"K6 four-step C={C}"
+        out[key] = row
+        print(f"{key}: {row}", file=sys.stderr, flush=True)
+        t_end = time.perf_counter() + STEP_SUSTAIN_S
+        while time.perf_counter() < t_end:
+            call()
+            torch.cuda.synchronize()
+        out[f"{key}, sustained"] = _step_window(call, calls, C)
+        print(f"{key}, sustained: {out[f'{key}, sustained']}",
+              file=sys.stderr, flush=True)
+        del want, got
+        if C in STEP_CUT_C:
+            for libs, make, cuts in ((pass1, _step_call, "pass 1"),
+                                     (cluster, _cluster_call, "cluster")):
+                for label, lib in libs.items():
+                    fn = make(lib, C, n, raw, hist, h, d, nh, label)
+                    k = f"K6 four-step C={C} {cuts}: {label}"
+                    out[k] = _step_window(fn, calls, C)
+                    print(f"{k}: {out[k]}", file=sys.stderr, flush=True)
+                    if "whole" in label:
+                        fn()
+                        out[f"{k}: holds the bars"] = _holds_bars(
+                            pfb, C, raw, hist, d, nh)
+        if parent is not None:
+            times, outs = {"parent": [], "this": []}, {}
+            this = (lambda: fused_pfb.fused_pfb_demod(raw, hist, h64, C,
+                                                      h_dev=h))
+            par = _step_call(parent, C, n, raw, hist, h, d, nh, "parent")
+            for who in ("parent", "this", "this", "parent"):
+                fn = par if who == "parent" else this
+                times[who].append(_step_window(fn, calls, C)["sum"])
+                res = fn()
+                outs.setdefault(who, (d.clone(), nh.clone()) if res is None
+                                else res)
+            for who, ts in times.items():
+                out[f"K6 four-step C={C} {who} (in turns)"] = ts
+            out[f"K6 four-step C={C}: this holds the bars against the "
+                f"parent"] = _holds_bars(pfb, C, raw, hist, *outs["this"],
+                                         want=outs["parent"])
+            print(f"K6 four-step C={C} in turns: {times}", file=sys.stderr,
+                  flush=True)
+        del raw, d
     return out
 
 
@@ -831,7 +997,22 @@ def main(argv=None) -> int:
                         res[f"{label}: {name}"] = v
             res.update(time_wide(libs, dev, par))
         if "step" in kernels:
-            res.update(time_step(dev))
+            regs, libs = {}, {}
+            for name, variants in (("fused_pfb", pass1_variants()),
+                                   ("fused_pfb_cluster", cluster_variants())):
+                libs[name] = _compile(variants, name, tmp, regs)
+            for label, rows in regs.items():
+                for kern, v in rows.items():
+                    if "pfb_pass1_kernel" in kern or "pfb_cluster" in kern:
+                        res[f"step {label}: {kern}"] = v
+            par = None
+            if parent is not None:
+                par = _compile({"parent": {
+                    f: (parent / f).read_text()
+                    for f in ("fused_pfb.cu", *build.HEADERS)
+                    if (parent / f).exists()}}, "fused_pfb", tmp)["parent"]
+            res.update(time_step(dev, libs["fused_pfb"],
+                                 libs["fused_pfb_cluster"], par))
         if "q1" in kernels:
             res.update(time_q1(_compile(q1_variants(), "fused_nbfm_q1", tmp),
                                dev))

@@ -532,9 +532,10 @@ def test_pfb_wide_kernel_pair_counts(cuda_device, C, pairs):
 
 
 # input bytes 2 and 8 bytes past a 16-byte boundary: the compiled-in plans'
-# threads copy the rows the bulk copies would
+# threads copy the rows the bulk copies would (8192: the cluster plan's
+# runs)
 @pytest.mark.parametrize("offset", [2, 8])
-@pytest.mark.parametrize("C", [384, 4096])
+@pytest.mark.parametrize("C", [384, 4096, 8192])
 def test_pfb_wide_kernel_unaligned_input(cuda_device, C, offset):
     pfb = PolyphaseChannelizer(C)
     n = 2 * C * 37
@@ -558,16 +559,20 @@ def test_pfb_wide_kernel_unaligned_input(cuda_device, C, offset):
 # K6's four-step route (C > 4096): 4097 = 17·241 (direct stages in both
 # passes), 4800 = 64·75, 8192 = 64·128, 8198 = 4099·2 (pass 2 a direct sum
 # from global memory), 16384 = 128·128; 130 frame pairs a block in one
-# group, and in three (the scratch held to 50 pairs)
+# group (4800, 8192, 16384: the cluster plans, one launch), and in three
+# on the two-pass route (the cluster plans emptied, the scratch held to 50
+# pairs)
 @pytest.mark.parametrize("groups", [1, 3])
 @pytest.mark.parametrize("C", [4097, 4800, 8192, 8198, 16384])
 @pytest.mark.parametrize("data", ["bank", "noise"])
 def test_pfb_four_step_matches_ref(cuda_device, monkeypatch, data, C,
                                    groups):
     """Two chained blocks of an on-grid FM bank of 6.25 kHz channels or of
-    noise: two launches a group counted, the output at the bars against
-    the plain version, the history bit-equal."""
+    noise: one launch a call counted on a cluster plan, else two a group,
+    the output at the bars against the plain version, the history
+    bit-equal."""
     if groups > 1:
+        monkeypatch.setattr(k6, "CLUSTER_PLANS", {})
         monkeypatch.setattr(k6, "SCRATCH_BYTES", 32 * C * 50)
     pfb = PolyphaseChannelizer(C)
     n = 2 * C * 130
@@ -575,7 +580,8 @@ def test_pfb_four_step_matches_ref(cuda_device, monkeypatch, data, C,
     hist_k = torch.zeros((2, pfb.hist_len), device=cuda_device)
     hist_r = hist_k.clone()
     per_call = k6.launches_per_call(C, n)
-    assert per_call == 2 * groups
+    assert per_call == (1 if k6.on_cluster(C) else 2 * groups)
+    assert k6.on_cluster(C) == (groups == 1 and C in (4800, 8192, 16384))
     for blk in range(2):
         raw = (_bank_iq(C * 6250.0, (0.0, 2 * 6250.0, -6250.0), n, seed=blk,
                         dev=1000.0)
@@ -593,17 +599,38 @@ def test_pfb_four_step_matches_ref(cuda_device, monkeypatch, data, C,
         assert torch.equal(hist_k, hist_r)
 
 
+def _into_trace(prof):
+    """Step a torch.profiler warmed up one step into its recording window,
+    then let the window's first device work pass: one small kernel, a
+    synchronize and 50 ms.  The trace can lose the device records of its
+    first milliseconds of device work (the runtime records of those
+    launches kept, the outputs equal to an eager run's: the kernels ran),
+    however long after ``prof.step()`` that work starts; on the H100 it
+    did, on every trace, late in a long process."""
+    import time
+    torch.cuda.synchronize()
+    time.sleep(0.05)
+    prof.step()
+    torch.ones(1, device="cuda").add_(1)
+    torch.cuda.synchronize()
+    time.sleep(0.05)
+
+
+@pytest.mark.parametrize("route", ["two-pass", "cluster"])
 @pytest.mark.parametrize("C", [4800, 8192])
 def test_pfb_four_step_launches_are_the_kernel_events(cuda_device,
-                                                      monkeypatch, C):
+                                                      monkeypatch, C, route):
     """The four-step route's counted launches equal the kernel events
-    torch.profiler records (pfb_pass1_kernel and pfb_pass2_kernel, one each
-    a group; here 3 groups, the scratch held to 60 pairs), in an eager call
-    and in a CUDA graph's replay of it; the replay's output equal to the
-    eager call's."""
-    import time
+    torch.profiler records, in an eager call and in a CUDA graph's replay
+    of it (the cluster launch captured as the eager call launches it); the
+    replay's output equal to the eager call's: the cluster kernel, one
+    launch a call, and the two-pass route (the cluster plans emptied),
+    pfb_pass1_kernel and pfb_pass2_kernel, one each a group, here 3 groups
+    (the scratch held to 60 pairs)."""
     from torch.profiler import ProfilerActivity, profile, schedule
-    monkeypatch.setattr(k6, "SCRATCH_BYTES", 32 * C * 60)
+    if route == "two-pass":
+        monkeypatch.setattr(k6, "CLUSTER_PLANS", {})
+        monkeypatch.setattr(k6, "SCRATCH_BYTES", 32 * C * 60)
     pfb = PolyphaseChannelizer(C)
     n = 2 * C * 150
     raw = torch.from_numpy(_bank_iq(C * 6250.0, (6250.0,), n, seed=5,
@@ -624,13 +651,12 @@ def test_pfb_four_step_launches_are_the_kernel_events(cuda_device,
     with torch.cuda.graph(graph):
         got, got_h = call()
     captured = k6.fused_pfb_demod.launches - n0
-    assert captured == k6.launches_per_call(C, n) == 6
+    assert captured == k6.launches_per_call(C, n) == (
+        1 if route == "cluster" else 6)
     for run in ("eager", "replay"):
         with profile(activities=[ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=1)) as prof:
-            torch.cuda.synchronize()
-            time.sleep(0.05)
-            prof.step()
+            _into_trace(prof)
             n0 = k6.fused_pfb_demod.launches
             if run == "eager":
                 call()
@@ -641,10 +667,41 @@ def test_pfb_four_step_launches_are_the_kernel_events(cuda_device,
             torch.cuda.synchronize()
         events = {name: sum(e.count for e in prof.key_averages()
                             if name in e.key)
-                  for name in ("pfb_pass1_kernel", "pfb_pass2_kernel")}
+                  for name in ("pfb_pass1_kernel", "pfb_pass2_kernel",
+                               "pfb_cluster_kernel")}
         assert events["pfb_pass1_kernel"] == events["pfb_pass2_kernel"]
+        assert (events["pfb_cluster_kernel"] == 0) == (route == "two-pass")
         assert sum(events.values()) == counted, (run, events, counted)
     assert torch.equal(got, want) and torch.equal(got_h, want_h)
+
+
+# the cluster plans over pair counts that are and are not a multiple of the
+# clusters the card holds (one cluster, a few, every one), a block's last
+# pairs in a run of their own
+@pytest.mark.parametrize("pairs", [1, 97, 781])
+@pytest.mark.parametrize("C", [4800, 8192, 16384])
+def test_pfb_cluster_kernel_pair_counts(cuda_device, C, pairs):
+    """Two streamed blocks of `pairs` frame pairs of a bank capture: one
+    launch a call, the output at the bars against the plain version (< 0.01
+    rad, > 80 dB), the history bit-equal."""
+    assert k6.on_cluster(C)
+    pfb = PolyphaseChannelizer(C)
+    n = 2 * C * pairs
+    hist_k = torch.zeros((2, pfb.hist_len), device=cuda_device)
+    hist_r = hist_k.clone()
+    for blk in range(2):
+        raw = torch.from_numpy(_bank_iq(C * 6250.0, (0.0, 2 * 6250.0,
+                                                     -6250.0), n, seed=blk,
+                                        dev=1000.0)).to(cuda_device)
+        n0 = k6.fused_pfb_demod.launches
+        d, hist_k = k6.fused_pfb_demod(raw, hist_k, pfb._h_np, C)
+        torch.cuda.synchronize()
+        assert k6.fused_pfb_demod.launches == n0 + 1
+        want, hist_r = k6.fused_pfb_demod_ref(raw, hist_r, pfb._h_np, C)
+        ok, detail = _wrapped_ok(want, d)
+        assert ok, (blk, detail)
+        assert torch.equal(hist_k, hist_r)
+        del raw, want, d
 
 
 def test_pfb_kernel_refuses_too_many_channels(cuda_device):
@@ -1402,7 +1459,6 @@ def test_graph_launch_counts_are_the_kernel_events(cuda_device, mode):
     (the capture's count): over a run, with its eager tail chunk, the
     counts equal the kernel events torch.profiler records on the card."""
     import re
-    import time
     from torch.profiler import ProfilerActivity, profile, schedule
     make, data, _ = _stream_modes()[mode]
     proc = make(cuda_device)
@@ -1410,13 +1466,10 @@ def test_graph_launch_counts_are_the_kernel_events(cuda_device, mode):
     wrappers = {"fused_nbfm_kernel": k.fused_nbfm,
                 "q1_kernel": k.fused_nbfm_q1, "pfb_kernel": k6.fused_pfb_demod}
     n0 = {sym: fn.launches for sym, fn in wrappers.items()}
-    # warmed up before it records: a cold profiler can lose the device
-    # events of its first milliseconds
+    # the window opened past the device records a trace can lose
     with profile(activities=[ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1)) as prof:
-        torch.cuda.synchronize()
-        time.sleep(0.05)
-        prof.step()
+        _into_trace(prof)
         _run_proc(proc, io.BytesIO(data))
         torch.cuda.synchronize()
     events = {sym: sum(e.count for e in prof.key_averages() if re.search(

@@ -35,11 +35,12 @@ from demodulator_tpu_torch.ops.demod import (_ATAN_COEFFS, _ATAN_COEFFS_FAST,
 from demodulator_tpu_torch.ops.cuda import fused_nbfm as k
 from demodulator_tpu_torch.ops.channelizer import PolyphaseChannelizer
 from demodulator_tpu_torch.ops.cuda.fused_pfb import (
-    MAX_CTA_CHANNELS, MAX_FACTOR, MAX_STAGED, SCRATCH_BYTES, SMEM_LIMIT,
+    CLUSTER_PLANS, MAX_CTA_CHANNELS, MAX_FACTOR, MAX_STAGED, SCRATCH_BYTES, SMEM_LIMIT,
     STEP_SMEM,
     WIDE_PLANS, WIDE_TAPS, fft_plan, fft_table, four_step_plan,
     four_step_smem, four_step_tiles, fused_pfb_demod_ref, group_pairs,
-    launches_per_call, pair_smem_bytes, sub_plan)
+    launches_per_call, on_cluster, pair_smem_bytes,
+    sub_plan)
 
 # the two-factor route's channel counts; above, the three-factor route's
 CHANNELS = range(1, MAX_STAGED + 1)
@@ -288,21 +289,25 @@ def test_compiled_wide_plans_are_the_wrappers_plans():
 
 
 def test_wide_stage_factors_are_the_tables():
-    """kW16 and kW3, the compiled-in plans' stage factors, are the table's
-    entries w_C^(m·C/16) and w_C^(m·C/3) that pfb_big_kernel reads: bit for
-    bit where C / n is a power of two (numpy's 2π·i/C is then 2π·m/n
-    exactly), else within 2e-15 (kW16 at C = 384)."""
-    src = _PFB_SRC.read_text()
-    for name, n in (("kW16", 16), ("kW3", 3)):
+    """kW16, kW3 and kW5 (csrc/pfb_device.cuh), the compiled-in plans'
+    stage factors, are the table's entries w_C^(m·C/n) that pfb_big_kernel
+    reads, at the three-factor plans and the cluster plans: bit for bit
+    where C / n is a power of two (numpy's 2π·i/C is then 2π·m/n exactly)
+    and at C = 4800 for n = 5, else within 2e-15 (kW16 at C = 384)."""
+    src = (_PFB_SRC.parent / "pfb_device.cuh").read_text()
+    plans = {**{C: fft_plan(C) for C in WIDE_PLANS},
+             **{C: (*sa, *sb) for C, (_, _, _, _, sa, sb, _)
+                in CLUSTER_PLANS.items()}}
+    for name, n in (("kW16", 16), ("kW3", 3), ("kW5", 5)):
         body = src[src.index(f"__constant__ double2 {name}["):]
         body = body[:body.index(";")]
         vals = [float.fromhex(v) for v in
                 re.findall(r"(-?0x[0-9a-f.]+p[-+]\d+)", body)]
         got = np.array(vals).reshape(n, 2)
-        for C, (C1, C2, C3) in ((C, fft_plan(C)) for C in WIDE_PLANS):
-            if n in (C1, C2, C3) or (n == 16 and C % 16 == 0):
+        for C, plan in plans.items():
+            if n in plan or (n == 16 and C % 16 == 0):
                 want = fft_table(C)[np.arange(n) * (C // n)]
-                if (C // n) & (C // n - 1) == 0:
+                if (C // n) & (C // n - 1) == 0 or (n, C) == (5, 4800):
                     np.testing.assert_array_equal(got, want,
                                                   err_msg=f"{name} {C}")
                 else:
@@ -508,8 +513,9 @@ def test_four_step_plan_takes_every_c():
     two-factor plan as (a, 1, b)); each tile within a CTA's shared memory,
     at most STEP_SMEM (two CTAs an SM) wherever one column pair fits; the
     launches a call two a group of pairs whose scratch stays within
-    SCRATCH_BYTES: one group of a 0.25 s block's 781 pairs up to 16 384
-    channels."""
+    SCRATCH_BYTES (one group of a 0.25 s block's 781 pairs up to 16 384
+    channels), or one on a compiled-in cluster plan: 4800, 6144, 8192 and
+    16384 with the 12-tap prototype, and no other C or P."""
     for C in FOUR_STEP:
         N1, N2 = four_step_plan(C)
         assert N1 * N2 == C, C
@@ -531,13 +537,19 @@ def test_four_step_plan_takes_every_c():
             assert T <= 1 or sm <= STEP_SMEM, C
         g = group_pairs(C)
         assert g == max(1, SCRATCH_BYTES // (32 * C)), C
-        assert launches_per_call(C, 2 * C * 781) == 2 * -(-781 // g), C
+        assert on_cluster(C) == (C in (4800, 6144, 8192, 16384)), C
+        assert not on_cluster(C, WIDE_TAPS - 5), C
+        assert launches_per_call(C, 2 * C * 781) == (
+            1 if on_cluster(C) else 2 * -(-781 // g)), C
+        assert launches_per_call(C, 2 * C * 781, WIDE_TAPS - 5) == \
+            2 * -(-781 // g), C
         assert C > 16384 or g >= 781, C
     assert [four_step_plan(C) for C in (4800, 6144, 8192, 8198, 8191,
                                         16384, 1 << 20)] == [
         (64, 75), (64, 96), (64, 128), (4099, 2), (8191, 1), (128, 128),
         (1024, 1024)]
-    assert launches_per_call(8192, 8192 * 1562) == 2
+    assert launches_per_call(8192, 8192 * 1562) == 1       # the cluster plan
+    assert launches_per_call(8198, 8198 * 1562) == 2
     assert launches_per_call(1 << 20, (1 << 20) * 1562) == 2 * 49  # 16 a group
     assert launches_per_call(4096, 4096 * 1562) == 1
 
@@ -697,6 +709,267 @@ def test_four_step_filter_is_the_plain_filter(C):
             got[0, c], got[1, c] = _pair_filter(x, h, C, (2 * j + 1) * C, c)
         np.testing.assert_array_equal(got.real, zp[0, 2 * j: 2 * j + 2])
         np.testing.assert_array_equal(got.imag, zp[1, 2 * j: 2 * j + 2])
+
+
+# -- K6's cluster route (the compiled-in four-step plans) ---------------------
+def _stage_geometry(plan, s):
+    """Stages' stage s of an N-point plan: (R, B, D)."""
+    B = int(np.prod(plan)) // int(np.prod(plan[:s]))
+    return plan[s], B, B // plan[s]
+
+
+def _stage_pos(plan, k):
+    """Stages::pos: natural index k -> its position after the stages."""
+    p = 0
+    for s in range(len(plan)):
+        p += (k % plan[s]) * _stage_geometry(plan, s)[2]
+        k //= plan[s]
+    return p
+
+
+def _stage_kbase(plan, row):
+    """Stages::kbase: the last stage's block row -> its output 0's natural
+    index."""
+    kb, m = 0, 1
+    for s in range(len(plan) - 1):
+        kb += (row // (_stage_geometry(plan, s)[2] // plan[-1]) % plan[s]) * m
+        m *= plan[s]
+    return kb
+
+
+def _by_products(w0, w1, n):
+    """[n, ...]: w0·w1^k, each power the one before times w1 (the kernel's
+    running product)."""
+    p = [w0 * np.ones_like(w1)]
+    for _ in range(1, n):
+        p.append(p[-1] * w1)
+    return np.stack(p)
+
+
+def _cl_stage(X, plan, s, w, C):
+    """cl_stage: stage s (not the last) of X [2, N, L]'s N-point FFTs in
+    place, outputs times w_B^(k·d) as powers of table entry d·C/B."""
+    R, B, D = _stage_geometry(plan, s)
+    N, L = X.shape[1], X.shape[2]
+    v = X.reshape(2, N // B, R, D, L)          # point blk·B + D·i + d
+    k = np.arange(R)
+    y = np.einsum("ki,fbidl->fbkdl", w[(k[:, None] * k[None, :]) % R
+                                        * (C // R)], v)
+    y *= _by_products(1.0 + 0j, w[np.arange(D) * (C // B)], R)[
+        None, None, :, :, None]
+    return y.reshape(2, N, L)
+
+
+def _cl_last(X, plan, w, C):
+    """The last stage's R-point DFTs of X [2, N, L] in place (no twiddle):
+    (y [2, N/R, R, L], block row -> kbase)."""
+    R = plan[-1]
+    N, L = X.shape[1], X.shape[2]
+    k = np.arange(R)
+    y = np.einsum("ki,fril->frkl", w[(k[:, None] * k[None, :]) % R
+                                      * (C // R)], X.reshape(2, N // R, R, L))
+    return y, np.array([_stage_kbase(plan, r) for r in range(N // R)])
+
+
+def _cluster_walk(raw, hist, h, C, grid, precise=False):
+    """pfb_cluster_kernel's walk in numpy: cluster i of `grid` takes pairs
+    [i·pairs/grid, (i + 1)·pairs/grid); its CTA r keeps a ring of P + 1
+    rows of N2 runs of NA + 8 raw words (the run of n2 from sample (R +
+    1)C − N1·n2 − a − NA, 16-byte aligned; each slot's row checked at
+    every read), filled as the copies fill it, samples before 0 from the
+    history and channel 0's row −1 from the input; the filter of channels
+    a + l + N1·n2 (the odd frame's tap p from ring row 2j − p, the even
+    frame's from 2j − 1 − p, float32 tap by tap) into X [frame, n2, l];
+    step A's stages in place, the last times w_C^(n1·k2); the exchange:
+    CTA r's k2 slice gathers Y[n1, k2] from the CTA owning n1 at
+    Stages::pos(k2); step B's stages, the last
+    pairing the frames (y rounded once to float32, the plain
+    discriminator) into d[j, k2 + N2·k1].  → (d, z [M, C] complex64, y [M,
+    C] complex128 in natural k)."""
+    f32 = np.float32
+    N1, N2, K, _, SA, SB, _ = CLUSTER_PLANS[C]
+    P = h.shape[0]
+    NA, NB, RW, RING = N1 // K, -(-N2 // K), N1 // K + 8, P + 1
+    words = raw.view(np.uint16)
+    xi, xq = _cond16(words)
+    M = len(words) // C
+    pairs = M // 2
+    w = fft_table(C) @ np.array([1.0, 1j])
+    d = np.full((pairs, C), np.nan, f32)
+    z_all = np.full((M, C), np.nan, np.complex64)
+    y_all = np.full((M, C), np.nan, complex)
+    n2s, ls = np.arange(N2)[:, None], np.arange(NA)[None, :]
+    grid = min(grid, pairs)
+    for cl in range(grid):
+        ja, jb = pairs * cl // grid, pairs * (cl + 1) // grid
+        assert jb > ja
+        ring = np.zeros((K, RING, N2, RW), np.uint16)
+        slot_row = np.full((K, RING), -1)
+
+        def fill(ra, rb):
+            for r in range(K):
+                for R in range(ra, rb):
+                    src = ((R + 1) * C - N1 * n2s - r * NA - NA
+                           + np.arange(RW)[None, :])
+                    assert src.min() >= 0 and src.max() < len(words)
+                    assert src.min() % 8 == 0            # 16-byte aligned
+                    ring[r, R % RING] = words[src]
+                    slot_row[r, R % RING] = R
+
+        fill(max(2 * ja - P, 0), 2 * ja + 1)
+        for j in range(ja, jb):
+            X = []
+            for r in range(K):
+                c = r * NA + ls + N1 * n2s                  # [N2, NA]
+
+                def x(q):
+                    R = 2 * j - q
+                    s_ = (R + 1) * C - c
+                    vi = np.full(c.shape, np.nan, f32)
+                    vq = np.full(c.shape, np.nan, f32)
+                    old = s_ < 0
+                    vi[old] = hist[0, P * C + s_[old]]
+                    vq[old] = hist[1, P * C + s_[old]]
+                    if R < 0:                   # sample 0 of channel 0
+                        new = ~old
+                        assert np.array_equal(s_[new], np.zeros(new.sum()))
+                        vi[new], vq[new] = xi[s_[new]], xq[s_[new]]
+                    else:
+                        assert not old.any()
+                        assert slot_row[r, R % RING] == R
+                        vi, vq = _cond16(ring[r, R % RING, n2s, NA - ls])
+                    return vi, vq
+                ze, zo = _ring_pair_filter(x, h, c)
+                z_all[2 * j, c], z_all[2 * j + 1, c] = ze, zo
+                X.append(np.stack([ze, zo]).astype(complex))  # [2, N2, NA]
+            if j + 1 < jb:
+                fill(2 * j + 1, 2 * j + 3)
+            for r in range(K):                               # step A
+                for s_ in range(len(SA) - 1):
+                    X[r] = _cl_stage(X[r], SA, s_, w, C)
+                y, kb = _cl_last(X[r], SA, w, C)
+                n1 = r * NA + np.arange(NA)
+                tw = _by_products(w[kb[:, None] * n1[None, :]],
+                                  w[n1 * (N2 // SA[-1])][None, :], SA[-1])
+                X[r] = (y * tw.transpose(1, 0, 2)[None]).reshape(2, N2, NA)
+            for r in range(K):                               # step B
+                k2 = r * NB + np.arange(min(NB, N2 - r * NB))
+                pos = np.array([_stage_pos(SA, k) for k in k2])
+                n1 = np.arange(N1)
+                Xb = np.stack([X[q][:, pos] for q in range(K)], 1)
+                # Xb [2, K, live, NA] -> rows [2, N1, live], n1 = q·NA + col
+                Xb = Xb.transpose(0, 1, 3, 2).reshape(2, N1, len(k2))
+                for s_ in range(len(SB) - 1):
+                    Xb = _cl_stage(Xb, SB, s_, w, C)
+                y, kb = _cl_last(Xb, SB, w, C)               # [2, rows, R, L]
+                k1 = kb[:, None] + (N1 // SB[-1]) * np.arange(SB[-1])[None, :]
+                k = k2[None, None, :] + N2 * k1[:, :, None]  # [rows, R, L]
+                for f in (0, 1):
+                    y_all[2 * j + f, k] = y[f]
+                ye, yo = y.astype(np.complex64)
+                zr = ye.real * yo.real + ye.imag * yo.imag
+                zj = ye.imag * yo.real - ye.real * yo.imag
+                a_ = atan2_poly(torch.from_numpy(zj), torch.from_numpy(zr),
+                                _ATAN_COEFFS if precise else _ATAN_COEFFS_FAST,
+                                newton_recip=not precise).numpy()
+                assert np.all(np.isnan(d[j, k]))             # each output once
+                d[j, k] = np.where(np.isnan(a_), f32(0), a_)
+    return d, z_all, y_all
+
+
+def _ring_pair_filter(x, h, c):
+    """The filter of both frames of a pair from x(q), ring row 2j − q: the
+    odd frame's tap p at q = p, the even frame's at q = p + 1, each z summed
+    tap by tap from p = 0 in float32 (pair_filter's order)."""
+    P = h.shape[0]
+    s = x(0)
+    hp = h[0, c]
+    orr, oi = hp * s[0], hp * s[1]
+    er = ei = None
+    for p in range(1, P + 1):
+        s = x(p)
+        er = hp * s[0] if p == 1 else er + hp * s[0]
+        ei = hp * s[1] if p == 1 else ei + hp * s[1]
+        if p < P:
+            hp = h[p, c]
+            orr, oi = orr + hp * s[0], oi + hp * s[1]
+    assert er.dtype == orr.dtype == np.float32
+    return er + 1j * ei, orr + 1j * oi
+
+
+@pytest.mark.parametrize("C", sorted(CLUSTER_PLANS))
+def test_cluster_walk_matches_fft_and_plain_version(C):
+    """The cluster plans' walk (_cluster_walk) on two streamed blocks of 8
+    random frame pairs over two clusters (the first cluster's pairs and the
+    second's first two read rows before sample 0 from a random history,
+    the later ones only the ring): the branch outputs bit-equal to the plain
+    version's, y within 1e-9 of C·ifft of them, the output within 1e-5 rad
+    and > 100 dB of the plain discriminator on that y rounded to float32,
+    and at 4800 of fused_pfb_demod_ref; the history bit-equal to it."""
+    rng = np.random.default_rng(C + 3)
+    pfb = PolyphaseChannelizer(C)
+    assert pfb.P == WIDE_TAPS
+    h = pfb._h_np.astype(np.float32)
+    hist = rng.standard_normal((2, pfb.hist_len)).astype(np.float32)
+    for blk in range(2):
+        raw = rng.integers(0, 256, 4 * C * 8, np.uint8)
+        d, z, y = _cluster_walk(raw, hist, h, C, grid=2, precise=blk == 1)
+        assert not np.isnan(d).any() and not np.isnan(y).any()
+        t_raw, t_hist = torch.from_numpy(raw), torch.from_numpy(hist)
+        zp, new_hist = pfb.branch_filter(torch.stack(split_iq(t_raw)), t_hist)
+        zp = zp.numpy()
+        np.testing.assert_array_equal(z.real, zp[0])
+        np.testing.assert_array_equal(z.imag, zp[1])
+        ref = C * np.fft.ifft(z.astype(np.complex128), axis=-1)
+        assert np.max(np.abs(y - ref)) <= 1e-9 * np.max(np.abs(ref)), C
+        r = ref.astype(np.complex64)
+        ye, yo = r[0::2], r[1::2]
+        zr = ye.real * yo.real + ye.imag * yo.imag
+        zj = ye.imag * yo.real - ye.real * yo.imag
+        want = atan2_poly(torch.from_numpy(zj), torch.from_numpy(zr),
+                          _ATAN_COEFFS if blk else _ATAN_COEFFS_FAST,
+                          newton_recip=not blk).numpy()
+        wants = [np.where(np.isnan(want), 0, want)]
+        if C == 4800:
+            ref_d, ref_h = fused_pfb_demod_ref(t_raw, t_hist, pfb._h_np, C,
+                                               precise=blk == 1)
+            wants.append(ref_d.numpy())
+            assert torch.equal(new_hist, ref_h)
+        for want in wants:
+            want = want.astype(np.float64)
+            err = np.remainder(d - want + np.pi, 2 * np.pi) - np.pi
+            snr = 10 * np.log10(np.mean(want ** 2)
+                                / max(np.mean(err ** 2), 1e-300))
+            assert np.abs(err).max() < 1e-5 and snr > 100.0, (C, blk, snr)
+        hist = new_hist.numpy()
+
+
+def test_compiled_cluster_plans_are_the_wrappers_plans():
+    """The cluster plans compiled in (PFB_CLUSTER in
+    csrc/fused_pfb_cluster.cu, the taps held in registers where the row
+    says so) are CLUSTER_PLANS: four_step_plan's N1 × N2,
+    K CTAs a cluster dividing N1 in 16-byte runs (N1/K a multiple of 8), at
+    most 8 (no non-portable size), step A's and step B's stages products to
+    N2 and N1 of 2, 3, 4, 5, 8 and 16 points; step B's first stage a task a
+    thread."""
+    src = (_PFB_SRC.parent / "fused_pfb_cluster.cu").read_text()
+    body = src[src.index("#define PFB_CLUSTER"):src.index("#undef PFB_CLUSTER")]
+    rows = re.findall(r"PFB_CLUSTER\((\d+), (\d+), (\d+), (\d+), (\d+), "
+                      r"Stages<([\d, ]+)>, Stages<([\d, ]+)>"
+                      r"(?:, (true))?\)", body)
+    got = {int(c): (int(n1), int(n2), int(k), int(t),
+                    tuple(int(v) for v in sa.split(", ")),
+                    tuple(int(v) for v in sb.split(", ")), held == "true")
+           for c, n1, n2, k, t, sa, sb, held in rows}
+    assert got == CLUSTER_PLANS
+    assert set(CLUSTER_PLANS) == {4800, 6144, 8192, 16384}
+    for C, (N1, N2, K, T, SA, SB, _) in CLUSTER_PLANS.items():
+        assert (N1, N2) == four_step_plan(C) and N1 * N2 == C
+        assert N1 % K == 0 and (N1 // K) % 8 == 0 and K <= 8, C
+        assert int(np.prod(SA)) == N2 and int(np.prod(SB)) == N1, C
+        assert set(SA) | set(SB) <= {2, 3, 4, 5, 8, 16}, C
+        assert 2 * -(-N2 // K) * (N1 // SB[0]) <= T, C
+        assert on_cluster(C) and launches_per_call(C, 2 * C * 781) == 1
 
 
 def _byte_perm(x, y, sel):
@@ -1045,7 +1318,8 @@ def test_span_plan_with_head_writes_every_word_once(vecs, H):
 
 
 @pytest.mark.parametrize("name", ["span", "span K3", "pfb", "wide", "q1",
-                                  "head fused_nbfm", "head fused_nbfm_q1"])
+                                  "head fused_nbfm", "head fused_nbfm_q1",
+                                  "step", "cluster"])
 def test_section_variants_find_their_markers(name):
     """``ops/cuda/sections.py`` cuts its variants out of the kernels'
     sources by markers; every marker is still in the source (a missing
@@ -1059,7 +1333,9 @@ def test_section_variants_find_their_markers(name):
                 "span K3": lambda: sections.span_variants(True),
                 "pfb": sections.pfb_variants,
                 "wide": sections.wide_variants,
-                "q1": sections.q1_variants}[name]()
+                "q1": sections.q1_variants,
+                "step": sections.pass1_variants,
+                "cluster": sections.cluster_variants}[name]()
     texts = [v if isinstance(v, str) else "".join(v.values())
              for v in variants.values()]
     assert len(set(texts)) == len(texts) > 1
@@ -1077,3 +1353,22 @@ def test_section_variants_find_their_markers(name):
             cuts = [variants[f"{kern}: {c}"] for c in sections.WIDE_CUTS]
             for k, call in enumerate(calls):
                 assert [call in t for t in cuts] == [i > k for i in range(5)]
+    # cumulative cuts: each adds its section back
+    for kind, cut_names, calls in (
+            ("step", sections.PASS1_CUTS,
+             ("      pair_filter(in, hist, h, C, P, top, a + tt + N1 * n2,",
+              "        const float2 z = Z[f * ZS + c];",
+              "      Yp[e * C + k2 * N1 + n1] = n1 * k2 ? cmul(")),
+            ("cluster", sections.CLUSTER_CUTS,
+             ("      cl_filter<W, false>(ring, in, hist, h, hr, X, j, a);",
+              "    cl_last_a<W>(X, tw, a);",
+              "    step_b<W>(X, XB, tw, d + j * C, kb0, live, precise);",
+              ("    step_b<W>(X, XB, tw, d + j * C, kb0, live, precise);",
+               "  cl_last_b<W>(X, row, kb0, live, precise);")))):
+        if name != kind:
+            continue
+        cuts = [variants[c] for c in cut_names]
+        for k, call in enumerate(calls):
+            call = (call,) if isinstance(call, str) else call
+            assert [all(c in t for c in call) for t in cuts] == [
+                i > k for i in range(len(cuts))], call
